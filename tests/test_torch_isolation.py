@@ -1,0 +1,43 @@
+"""The port imports no JAX and nothing of the JAX package.
+
+Checked in a fresh interpreter: this test process may already hold jax
+(``tests/conftest.py`` configures it, and other test files import it).
+"""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import downloader_tpu_torch
+names = ["downloader_tpu_torch"] + [
+    m.name for m in pkgutil.walk_packages(downloader_tpu_torch.__path__,
+                                          "downloader_tpu_torch.")
+    if m.name != "downloader_tpu_torch.__main__"]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+banned = ("jax", "jaxlib", "flax", "optax", "orbax", "triton", "downloader_tpu")
+hits = sorted(m for m in sys.modules
+              if any(m == b or m.startswith(b + ".") for b in banned))
+print(len(names), "IMPORTED")
+print("BANNED", hits)
+"""
+
+
+def test_port_and_chip_smoke_import_no_jax_or_reference():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    # every module of the package was walked (all but __main__)
+    n_files = sum(f.endswith(".py") for _, _, files in
+                  os.walk(os.path.join(REPO, "downloader_tpu_torch"))
+                  for f in files)
+    assert int(lines[0].split()[0]) == n_files - 1, lines
+    assert lines[1] == "BANNED []", lines[1]
