@@ -4,8 +4,8 @@ compute plane, for an NVIDIA H100.
 The JAX package ``downloader_tpu`` stays the reference; this package
 imports ``torch`` and never JAX or anything of ``downloader_tpu``: it
 keeps its own copy of every framework-free helper it needs.  What is
-ported so far is the upscale main path, reached through the ``upscale``
-CLI (``python -m downloader_tpu_torch upscale SRC DST``):
+ported so far is the upscale compute plane's inference, reached through
+the ``upscale`` CLI (``python -m downloader_tpu_torch upscale SRC DST``):
 
 - ``compute/video.py``, ``compute/transcode.py``, ``utils/stale.py``,
   ``compute/parallel/transfer.py`` — copies of the reference's
@@ -14,7 +14,10 @@ CLI (``python -m downloader_tpu_torch upscale SRC DST``):
   model, its ops and the flax <-> torch weight bridge;
 - ``compute/csrc/`` + ``compute/kernels/`` — the hand-written CUDA
   kernels (``sm_90a``) and their ``nvcc``/``ctypes`` loader;
-- ``compute/pipeline.py`` — the batched frame engine.
+- ``compute/pipeline.py`` — the batched frame engine, every branch and
+  spatial tiling; ``compute/infer.py`` — the RGB inference path;
+- ``scripts/head_spike.py`` — the s2d-head kernel against the engine's
+  cuDNN head (``python -m downloader_tpu_torch.scripts.head_spike``).
 
 Everything runs on the card unless the caller asks for the CPU.
 """

@@ -48,6 +48,9 @@ SIGNATURES = {
     "s2d_tail": ("s2d_tail_launch",
                  [_void_p, _void_p, _void_p, _int, _int, _int, TailCoeffs,
                   _void_p]),
+    "s2d_head": ("s2d_head_launch",
+                 [_void_p, _void_p, _void_p, _void_p, _int, _int, _int, _int,
+                  _void_p]),
 }
 
 

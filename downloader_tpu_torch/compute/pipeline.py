@@ -1,18 +1,35 @@
 """Batched frame-upscaling engine: planar YCbCr in, planar YCbCr out —
 the port of ``downloader_tpu/compute/pipeline.py``'s ``FrameUpscaler``.
 
-What this slice runs is the reference's main path, the branch every
-default-config job takes (4:2:0 chroma, subsampling == scale, even frame
-dims): u8 planes -> chroma upsample + YCbCr->unit-RGB -> the bf16 trunk
-(cuDNN) -> the packed stride-2 s2d head (cuDNN) -> the fused s2d tail
-(a hand-written CUDA kernel) -> u8 planes.  The other branches — odd dims,
-4:2:2/4:4:4 or ``sub != scale``, and spatial tiling of large frames —
-raise ``NotImplementedError`` naming the later slice of the port; they
-never run a different path quietly.
+Every branch of the reference's ``core`` (``pipeline.py:232-261``) runs:
+
+- the main path (chroma subsampling == scale, even frame dims): u8 planes
+  -> chroma upsample + YCbCr->unit-RGB -> the bf16 trunk (cuDNN) -> the
+  packed stride-2 s2d head (cuDNN) -> the fused s2d tail (a hand-written
+  CUDA kernel, all three quantizes inline) -> u8 planes;
+- odd frame dims at subsampling == scale (e.g. scale 1 on 4:4:4): the
+  plain 3x3 head, then :func:`~.ops.colorspace.fused_subpixel_ycc`;
+- ``sub != scale`` (4:2:2 and 4:4:4 at scale 2): the generic tail — the
+  full forward, RGB->YCbCr, chroma downsample and three standalone
+  quantizes.
+
+The tails' quantizes launch the CUDA kernels on the card.  The s2d tail
+kernel takes scale 2 only, so on CUDA the s2d branch at any other scale
+raises ``NotImplementedError`` up front instead of running another path.
+
+Spatial tiling (the reference's ``:42-122``, ``:263-327``) folds halo'd
+tiles of very large frames into the batch dim when ``PIXEL_BUDGET``
+starves the dispatch batch below ``TARGET_FRAMES`` (4K at batch 2 runs as
+32 tiles of 556x976), runs the branch above on them and stitches the
+kept regions.  The halo covers the receptive radius and the outer tiles
+sit on the frame edges, so the result is the untiled one.
 
 PyTorch runs eagerly, so the reference's static-shape padding of the
 last short batch is not needed: every batch runs at its own size and
-the returned shapes match the reference's.
+the returned shapes match the reference's.  The tiling decision is
+still taken on the padded size the reference would dispatch
+(:meth:`FrameUpscaler.batch_for`), so a short last batch tiles like the
+others.
 
 Transfers (on CUDA): the planes are copied into pinned host buffers and
 uploaded with ``non_blocking``; the outputs' d2h copies into pinned
@@ -34,17 +51,24 @@ import torch
 
 from .. import resolve_device
 from .models.upscaler import Upscaler, UpscalerConfig
-from .ops.colorspace import fused_subpixel_ycc_s2d, upsample_chroma, ycbcr_to_unit_rgb
+from .ops.colorspace import (
+    downsample_chroma,
+    fused_subpixel_ycc,
+    fused_subpixel_ycc_s2d,
+    rgb_to_ycbcr,
+    upsample_chroma,
+    ycbcr_to_unit_rgb,
+)
+from .ops.pixel_shuffle import quantize_u8
 from .ops.s2d_head import s2d_head
 from .parallel.transfer import HopSink, TransferQueue, timed_hop
 from .video import Y4MReader, Y4MWriter
 
-# -- when the reference tiles (copied: decides which frames raise) ------
+# -- spatial tiling, as the reference decides it ------------------------
 #
-# The reference cuts very large frames into a grid of halo'd tiles when
-# the PIXEL_BUDGET cap starves the dispatch batch below TARGET_FRAMES
-# (``downloader_tpu/compute/pipeline.py:42-122``).  Tiling is a later
-# slice of the port; this slice only needs to know when it would engage.
+# The constants are the reference's, kept unchanged: they were measured
+# on a 16 GB TPU, and re-deriving them for an 80 GB H100 is later,
+# measured work.
 
 TARGET_FRAMES = 8
 TILE_MIN_PX = 1920 * 1080
@@ -81,8 +105,24 @@ def _tile_grid(height: int, width: int, sub_h: int, sub_w: int,
     return best[1] if best else (1, 1)
 
 
+def _tile_anchors(dim: int, splits: int, halo: int) -> "list[tuple[int, int]]":
+    """Per-tile (anchor, crop_offset): input slice [anchor, anchor+T)
+    with T = dim/splits + 2*halo, kept output [i*K, (i+1)*K) at
+    crop_offset inside the tile.  Clamping puts outer tile edges on the
+    frame edges (exact SAME-padding semantics there)."""
+    if splits == 1:
+        return [(0, 0)]
+    kept = dim // splits
+    tile = kept + 2 * halo
+    out = []
+    for i in range(splits):
+        anchor = min(max(i * kept - halo, 0), dim - tile)
+        out.append((anchor, i * kept - anchor))
+    return out
+
+
 @contextlib.contextmanager
-def _no_tf32():
+def no_tf32():
     """Run cuDNN's convs and cuBLAS's matmuls in true f32 (the f32-compute
     configuration must not drop to TF32; bf16 compute is unaffected),
     then restore the process-wide flags for any other torch code."""
@@ -110,7 +150,7 @@ class _InFlight:
 
 
 class FrameUpscaler:
-    """Holds the model and runs the upscale main path on one device."""
+    """Holds the model and runs every inference branch on one device."""
 
     # Pixel budget per dispatch, kept from the reference unchanged: sized
     # there for a 16 GB TPU (8 x 1080p).  Re-deriving it for an 80 GB
@@ -146,48 +186,117 @@ class FrameUpscaler:
         per_device = max(1, self.PIXEL_BUDGET // (height * width))
         return min(self.batch, per_device * self.n_devices)
 
-    def _check_main_path(self, height: int, width: int, sub_h: int,
-                         sub_w: int) -> None:
-        scale = self.config.scale
-        if (sub_h, sub_w) != (scale, scale):
-            raise NotImplementedError(
-                f"chroma subsampling {sub_h}x{sub_w} != scale {scale} (e.g. "
-                "4:2:2/4:4:4) takes the generic tail, which a later slice of "
-                "the port brings (other inference paths)")
-        if height % 2 or width % 2:
-            raise NotImplementedError(
-                f"odd frame dims {width}x{height} take the plain head, which "
-                "a later slice of the port brings (other inference paths)")
-        grid = _tile_grid(height, width, sub_h, sub_w,
+    def tile_grid(self, height: int, width: int, sub_h: int,
+                  sub_w: int) -> Tuple[int, int]:
+        """The (rows, cols) tile grid a dispatch of (height, width) frames
+        runs at; (1, 1) = untiled.  Decided, as the reference does, on
+        the per-device dispatch batch :meth:`batch_for` gives."""
+        return _tile_grid(height, width, sub_h, sub_w,
                           _tile_halo(self.config.depth),
                           batch=self.batch_for(height, width) // self.n_devices)
-        if grid != (1, 1):
-            raise NotImplementedError(
-                f"{width}x{height} frames would be tiled {grid[0]}x{grid[1]}; "
-                "spatial tiling is a later slice of the port")
 
-    @torch.inference_mode()
-    def packed_head(self, y: torch.Tensor, cb: torch.Tensor,
-                    cr: torch.Tensor) -> torch.Tensor:
-        """(n, H, W)/(n, H/2, W/2) u8 planes on the engine's device ->
-        the s2d head's packed (n, H/2, W/2, 4*scale^2*3) output."""
+    def _check_path(self, height: int, width: int, sub_h: int,
+                    sub_w: int) -> None:
+        """Refuse up front what the CUDA path cannot run, rather than
+        failing inside a kernel or running another path."""
         scale = self.config.scale
-        rgb = ycbcr_to_unit_rgb(
-            y.float(),
-            upsample_chroma(cb.float(), scale, scale),
-            upsample_chroma(cr.float(), scale, scale))
+        if (self.device.type == "cuda" and (sub_h, sub_w) == (scale, scale)
+                and height % 2 == 0 and width % 2 == 0 and scale != 2):
+            raise NotImplementedError(
+                f"scale {scale} with matching chroma subsampling and even "
+                f"dims {width}x{height} takes the s2d tail, whose CUDA kernel "
+                "(csrc/s2d_tail.cu) takes scale 2 only; a scale-generic s2d "
+                "tail kernel is not written yet")
+
+    def _unit_rgb(self, y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
+                  sub_h: int, sub_w: int) -> torch.Tensor:
+        return ycbcr_to_unit_rgb(y.float(),
+                                 upsample_chroma(cb.float(), sub_h, sub_w),
+                                 upsample_chroma(cr.float(), sub_h, sub_w))
+
+    def _s2d_head(self, rgb: torch.Tensor) -> torch.Tensor:
         head = self.model.subpixel
-        with _no_tf32():
+        with no_tf32():
             feats = self.model.trunk(rgb)
             return s2d_head(feats, head.weight.permute(2, 3, 1, 0), head.bias,
                             self.config.compute_dtype)
 
     @torch.inference_mode()
-    def _core(self, y: torch.Tensor, cb: torch.Tensor,
-              cr: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        """(n, H, W)/(n, H/2, W/2) u8 device planes -> upscaled u8 planes."""
-        return fused_subpixel_ycc_s2d(self.packed_head(y, cb, cr),
-                                      self.config.scale)
+    def packed_head(self, y: torch.Tensor, cb: torch.Tensor,
+                    cr: torch.Tensor) -> torch.Tensor:
+        """Main-path (n, H, W)/(n, H/scale, W/scale) u8 planes on the
+        engine's device -> the s2d head's packed (n, H/2, W/2,
+        4*scale^2*3) output."""
+        scale = self.config.scale
+        return self._s2d_head(self._unit_rgb(y, cb, cr, scale, scale))
+
+    def _branch(self, y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
+                sub_h: int, sub_w: int) -> Tuple[torch.Tensor, ...]:
+        """The reference's ``core``: one of the three branches on whole
+        (or tiled) frames."""
+        scale = self.config.scale
+        rgb = self._unit_rgb(y, cb, cr, sub_h, sub_w)
+        if (sub_h, sub_w) == (scale, scale):
+            if y.shape[1] % 2 == 0 and y.shape[2] % 2 == 0:
+                return fused_subpixel_ycc_s2d(self._s2d_head(rgb), scale)
+            # odd frame dims: the fused sub-pixel tail on the plain head
+            with no_tf32():
+                h12 = self.model.backbone(rgb)
+            return fused_subpixel_ycc(h12, scale)
+        # generic tail: shuffle, then transform
+        with no_tf32():
+            out = self.model(rgb)
+        y2, cb2, cr2 = rgb_to_ycbcr(out.float() * 255.0)
+        cb2 = downsample_chroma(cb2, sub_h, sub_w)
+        cr2 = downsample_chroma(cr2, sub_h, sub_w)
+        return tuple(quantize_u8(p.contiguous()) for p in (y2, cb2, cr2))
+
+    def _tiled(self, y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
+               sub_h: int, sub_w: int, rows: int,
+               cols: int) -> Tuple[torch.Tensor, ...]:
+        """Cut halo'd tiles, fold them into the batch dim (tile-major),
+        run :meth:`_branch` once, crop the halos and stitch."""
+        height, width = y.shape[1], y.shape[2]
+        halo = _tile_halo(self.config.depth)
+        scale = self.config.scale
+        h_anchors = _tile_anchors(height, rows, halo)
+        w_anchors = _tile_anchors(width, cols, halo)
+        kept_h, kept_w = height // rows, width // cols
+        tile_h = kept_h + (2 * halo if rows > 1 else 0)
+        tile_w = kept_w + (2 * halo if cols > 1 else 0)
+        corners = [(ah, aw) for ah, _ in h_anchors for aw, _ in w_anchors]
+
+        def cut(plane, dh, dw):
+            return torch.cat([plane[:, ah // dh:(ah + tile_h) // dh,
+                                    aw // dw:(aw + tile_w) // dw]
+                              for ah, aw in corners])
+
+        outs = self._branch(cut(y, 1, 1), cut(cb, sub_h, sub_w),
+                            cut(cr, sub_h, sub_w), sub_h, sub_w)
+        n = y.shape[0]
+        stitched = []
+        for plane, (dh, dw) in zip(outs, ((1, 1), (sub_h, sub_w), (sub_h, sub_w))):
+            tiles = plane.split(n)
+            th, tw = kept_h * scale // dh, kept_w * scale // dw
+            out_rows = []
+            for r, (_, oh) in enumerate(h_anchors):
+                y0 = oh * scale // dh
+                out_rows.append(torch.cat([
+                    tiles[r * cols + c][:, y0:y0 + th,
+                                        ow * scale // dw:ow * scale // dw + tw]
+                    for c, (_, ow) in enumerate(w_anchors)], dim=2))
+            stitched.append(torch.cat(out_rows, dim=1))
+        return tuple(stitched)
+
+    @torch.inference_mode()
+    def _core(self, y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
+              sub_h: int, sub_w: int) -> Tuple[torch.Tensor, ...]:
+        """(n, H, W)/(n, H/sub_h, W/sub_w) u8 device planes -> upscaled
+        u8 planes, tiled where :meth:`tile_grid` says so."""
+        rows, cols = self.tile_grid(y.shape[1], y.shape[2], sub_h, sub_w)
+        if rows * cols == 1:
+            return self._branch(y, cb, cr, sub_h, sub_w)
+        return self._tiled(y, cb, cr, sub_h, sub_w, rows, cols)
 
     # ------------------------------------------------------------------
     def _dispatch(self, y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
@@ -195,10 +304,10 @@ class FrameUpscaler:
         """Stage and launch one batch WITHOUT waiting for the device; the
         d2h copies are queued behind the compute.  :meth:`_fetch`
         materializes the result."""
-        self._check_main_path(y.shape[1], y.shape[2], sub_h, sub_w)
+        self._check_path(y.shape[1], y.shape[2], sub_h, sub_w)
         if self.device.type == "cpu":
             out = self._core(*(torch.from_numpy(np.ascontiguousarray(a))
-                               for a in (y, cb, cr)))
+                               for a in (y, cb, cr)), sub_h, sub_w)
             return _InFlight(out, None, None, [])
         planes = (y, cb, cr)
         with timed_hop(self.hop_sink, "h2d",
@@ -208,7 +317,7 @@ class FrameUpscaler:
             for buf, arr in zip(pinned, planes):
                 buf.numpy()[...] = arr
             dev = [buf.to(self.device, non_blocking=True) for buf in pinned]
-        out = self._core(*dev)
+        out = self._core(*dev, sub_h, sub_w)
         computed = torch.cuda.Event()
         computed.record()
         host = tuple(torch.empty(t.shape, dtype=torch.uint8, pin_memory=True)

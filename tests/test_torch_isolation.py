@@ -41,3 +41,26 @@ def test_port_and_chip_smoke_import_no_jax_or_reference():
                   for f in files)
     assert int(lines[0].split()[0]) == n_files - 1, lines
     assert lines[1] == "BANNED []", lines[1]
+
+
+_ENTRY_PROBE = r"""
+import sys
+import downloader_tpu_torch.scripts.head_spike
+import downloader_tpu_torch.compute.infer
+banned = ("jax", "jaxlib", "flax", "optax", "orbax", "triton", "downloader_tpu",
+          "scripts")
+hits = sorted(m for m in sys.modules
+              if any(m == b or m.startswith(b + ".") for b in banned))
+print("BANNED", hits)
+"""
+
+
+def test_head_spike_and_infer_import_no_jax_reference_or_scripts():
+    """The spike's counterpart and the RGB ``infer`` path stand alone:
+    neither pulls in JAX, the JAX package or its ``scripts`` spike."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", _ENTRY_PROBE], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines()[-1] == "BANNED []", proc.stdout

@@ -68,3 +68,95 @@ def test_s2d_tail_kernel_matches_plain(cuda_device, wide):
     assert tcs.fused_subpixel_ycc_s2d.launches == before + 1
     for g, w in zip(got, tcs.fused_subpixel_ycc_s2d_plain(packed, 2)):
         assert torch.equal(g.cpu(), w)
+
+
+def _head_inputs(shape, seed):
+    rng = np.random.default_rng(seed)
+    feats = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    k4 = torch.from_numpy(rng.standard_normal((4, 4, 128, 48)).astype(np.float32)
+                          / np.sqrt(1152))
+    bias4 = torch.from_numpy(rng.standard_normal(48).astype(np.float32) * 0.1)
+    return (feats.to(torch.bfloat16), k4.to(torch.bfloat16),
+            bias4.to(torch.bfloat16))
+
+
+def _head_ulps(got, want):
+    """|got - want| in bf16 ulps of |want|, with magnitudes under 1/256
+    of the output's RMS counted at that floor: there, where the ~2048
+    terms of a sum cancel, the f32 sum's own rounding error is more than
+    a bf16 ulp of the result."""
+    g, w = got.float(), want.float()
+    floor = w.pow(2).mean().sqrt() / 256
+    _, exp = torch.frexp(torch.maximum(w.abs(), floor))
+    return (g - w).abs() / torch.ldexp(torch.ones_like(w), exp - 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,out_dtype", [
+    ((2, 64, 256, 128), torch.bfloat16),   # the spike's check shape
+    ((1, 18, 34, 128), torch.bfloat16),    # ragged: H/2 = 9, W/2 = 17
+    ((1, 18, 34, 128), torch.float32),
+    ((3, 2, 2, 128), torch.bfloat16),      # one output pixel, all edges
+])
+def test_s2d_head_kernel_matches_plain(cuda_device, shape, out_dtype):
+    """Within one bf16 ulp (see :func:`_head_ulps`), >= 99% exact: the
+    tensor cores sum in f32 in their own order, the plain version in
+    float64, and a sum next to a rounding boundary can tip either way."""
+    from downloader_tpu_torch.compute.ops import s2d_head as thead
+
+    feats, k4, bias4 = _head_inputs(shape, 14)
+    before = thead.s2d_head_kernel.launches
+    got = thead.s2d_head_kernel(feats.to(cuda_device), k4.to(cuda_device),
+                                bias4.to(cuda_device), out_dtype).cpu()
+    torch.cuda.synchronize()
+    assert thead.s2d_head_kernel.launches == before + 1
+    want = thead.s2d_head_kernel_plain(feats, k4, bias4, out_dtype)
+    assert got.shape == want.shape and got.dtype == out_dtype
+    if out_dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        return
+    assert float(_head_ulps(got, want).max()) <= 1
+    assert float((got == want).double().mean()) >= 0.99
+
+
+@pytest.mark.cuda
+def test_s2d_head_kernel_rejects_what_it_does_not_take(cuda_device):
+    from downloader_tpu_torch.compute.ops import s2d_head as thead
+
+    feats, k4, bias4 = (t.to(cuda_device) for t in _head_inputs((1, 4, 6, 128), 15))
+    with pytest.raises(TypeError):
+        thead.s2d_head_kernel(feats.float(), k4, bias4)
+    with pytest.raises(ValueError):
+        thead.s2d_head_kernel(feats[:, :3], k4, bias4)       # odd height
+    with pytest.raises(ValueError):
+        thead.s2d_head_kernel(feats[..., :64].contiguous(), k4[:, :, :64], bias4)
+    with pytest.raises(ValueError):
+        thead.s2d_head_kernel(feats.transpose(1, 2), k4, bias4)
+    with pytest.raises(ValueError):
+        thead.s2d_head_kernel(feats, k4.cpu(), bias4)
+    with pytest.raises(TypeError):
+        thead.s2d_head_kernel(feats, k4, bias4, torch.float16)
+
+
+@pytest.mark.cuda
+def test_engine_paths_launch_the_quantize_kernel(cuda_device):
+    """The generic tail (4:4:4 at scale 2) quantizes its three planes with
+    the standalone kernel; the s2d branch at scale 1 is refused on CUDA."""
+    from downloader_tpu_torch.compute.models.upscaler import UpscalerConfig
+    from downloader_tpu_torch.compute.pipeline import FrameUpscaler
+
+    config = UpscalerConfig(features=8, depth=2)
+    engine = FrameUpscaler(config, batch=2)
+    planes = [np.random.default_rng(16).integers(0, 256, (2, 12, 16), np.uint8)
+              for _ in range(3)]
+    before = tps.quantize_u8.launches
+    out = engine.upscale_batch(*planes, 1, 1)
+    assert tps.quantize_u8.launches == before + 3
+    assert [p.shape for p in out] == [(2, 24, 32)] * 3
+    cpu = FrameUpscaler(config, batch=2, device="cpu")
+    cpu.model.load_state_dict(engine.model.state_dict())
+    for g, w in zip(out, cpu.upscale_batch(*planes, 1, 1)):
+        assert np.abs(g.astype(int) - w.astype(int)).max() <= 1
+    scale1 = FrameUpscaler(UpscalerConfig(features=8, depth=2, scale=1), batch=2)
+    with pytest.raises(NotImplementedError, match="scale-generic"):
+        scale1.upscale_batch(*planes, 1, 1)

@@ -137,34 +137,6 @@ def test_cli_upscale_on_cpu_matches_engine(tmp_path, capsys):
             np.testing.assert_array_equal(got, want[plane][i])
 
 
-@pytest.mark.parametrize("width,height,colorspace,what", [
-    (18, 14, "444", "subsampling"),       # 4:4:4: generic tail
-    (16, 12, "422", "subsampling"),       # 4:2:2: generic tail
-])
-def test_other_branches_raise_not_implemented(tmp_path, width, height,
-                                              colorspace, what):
-    engine = FrameUpscaler(TINY, batch=2, device="cpu")
-    src = tmp_path / "clip.y4m"
-    src.write_bytes(_y4m(width, height, 2, colorspace=colorspace))
-    with pytest.raises(NotImplementedError, match=what):
-        engine.upscale_y4m(str(src), str(tmp_path / "out.y4m"))
-
-
-def test_odd_dims_and_tiling_raise_not_implemented():
-    engine = FrameUpscaler(TINY, batch=2, device="cpu")
-    y, cb, cr = _planes(1, 12, 16, seed=5)
-    # odd dims: the reference takes the plain head (a 4:2:0 Y4M cannot
-    # carry odd dims, so the planes go in directly)
-    with pytest.raises(NotImplementedError, match="odd"):
-        engine.upscale_batch(np.zeros((1, 13, 16), np.uint8), cb, cr, 2, 2)
-    # 4K at batch 2: the reference would tile 4 ways
-    z = np.zeros((1, 2160, 3840), np.uint8)
-    c = np.zeros((1, 1080, 1920), np.uint8)
-    with pytest.raises(NotImplementedError, match="tiled"):
-        engine.upscale_batch(z, c, c, 2, 2)
-    assert engine.upscale_batch(y, cb, cr, 2, 2)[0].shape == (1, 24, 32)
-
-
 def test_default_device_is_cuda_and_never_falls_back():
     assert resolve_device("cpu").type == "cpu"
     if torch.cuda.is_available():
