@@ -14,7 +14,11 @@ Phases, each failing the run (non-zero exit) on any error:
    plane and the generic tail's (8, 2160, 3840) f32 plane; timed on the
    last;
 3. ``fused_subpixel_ycc_s2d``: kernel vs plain on the card, byte-exact,
-   on a seeded (8, 540, 960, 48) bf16 packed head output; timed;
+   at scales 1-5 (wide-exponent and ragged inputs) and on a seeded (8,
+   540, 960, 48) bf16 packed head output at scale 2; timed there; then
+   the shipped build against the same source with every scale on its
+   run-time loop, byte-equal and timed in turns at scales 1-4 on the
+   1080p batch's packed size;
 4. ``s2d_head_kernel``: kernel vs its plain version (float64 sum, one
    rounding) at the spike's (2, 64, 256, 128), a ragged shape and the
    (8, 720, 1280, 128) / (8, 1080, 1920, 128) feature maps of 720p and
@@ -42,7 +46,10 @@ Phases, each failing the run (non-zero exit) on any error:
    its chip);
 9. odd dims: an 8-frame 1919x1079 4:4:4 Y4M through a scale-1 engine's
    ``upscale_y4m`` (the configuration that reaches the odd branch);
-   card vs CPU on a small input;
+   card vs CPU on a small input; then even dims at scale 1: an 8-frame
+   1920x1080 4:4:4 Y4M through the same engine's ``upscale_y4m``, on the
+   s2d branch (one scale-1 tail launch, no standalone quantize); card vs
+   CPU on a small input;
 10. ``infer``: ``upscale_frames`` on 4 seeded 1920x1080 RGB frames; card
    vs CPU on a small input;
 11. throughput at 720p, 1080p and 4K: ``FrameUpscaler.upscale_to`` (the
@@ -204,13 +211,19 @@ def phase_tail(torch, rates, results):
     gen = torch.Generator(device=dev).manual_seed(2)
     shape = (8, HEIGHT // 2, WIDTH // 2, 48)
     err = 0
-    for label, packed in (("wide-exponent (2,10,12,48)",
-                           _packed_input(torch, (2, 10, 12, 48), gen, dev, True)),
-                          (f"{shape}", _packed_input(torch, shape, gen, dev))):
-        got = fused_subpixel_ycc_s2d(packed, 2)
+    cases = []
+    for scale in (1, 2, 3, 4, 5):
+        c = 12 * scale * scale
+        cases += [(scale, f"scale {scale} wide-exponent (2,10,12,{c})",
+                   _packed_input(torch, (2, 10, 12, c), gen, dev, True)),
+                  (scale, f"scale {scale} (2,36,66,{c})",
+                   _packed_input(torch, (2, 36, 66, c), gen, dev))]
+    cases.append((2, f"scale 2 {shape}", _packed_input(torch, shape, gen, dev)))
+    for scale, label, packed in cases:
+        got = fused_subpixel_ycc_s2d(packed, scale)
         torch.cuda.synchronize()
         for plane, g, w in zip("y cb cr".split(), got,
-                               fused_subpixel_ycc_s2d_plain(packed, 2)):
+                               fused_subpixel_ycc_s2d_plain(packed, scale)):
             err = max(err, _assert_equal(g, w, f"s2d tail {label} {plane}"))
         _say(f"fused_subpixel_ycc_s2d {label}: byte-exact vs plain "
              f"(y {tuple(got[0].shape)}, cb/cr {tuple(got[1].shape)})")
@@ -224,9 +237,42 @@ def phase_tail(torch, rates, results):
     bound, by = _bound_ms(nbytes, 44 * pixels, rates)
     results["s2d_tail"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                                bound_by=by, max_abs_err=err, library_ms=None)
-    _say(f"fused_subpixel_ycc_s2d {shape}: kernel {ms:.4f} ms, "
+    _say(f"fused_subpixel_ycc_s2d scale 2 {shape}: kernel {ms:.4f} ms, "
          f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}, "
          f"{nbytes / 1e6:.1f} MB)")
+    del packed, got
+    _tail_builds(torch, rates, gen, dev)
+
+
+def _tail_builds(torch, rates, gen, dev):
+    """The shipped tail build against the same source built with every
+    scale on the run-time loop (``-DS2D_TAIL_FIXED_SCALES=0``), byte for
+    byte and timed in turns, at the main path's frame size and scales 1-4."""
+    from downloader_tpu_torch.compute import kernels
+    from downloader_tpu_torch.compute.ops.colorspace import launch_s2d_tail
+
+    builds = {"shipped": kernels.function("s2d_tail"),
+              **kernels.build_variants("s2d_tail", {
+                  "run-time scale": {"S2D_TAIL_FIXED_SCALES": 0}})}
+    for scale in (1, 2, 3, 4):
+        shape = (8, HEIGHT // 2, WIDTH // 2, 12 * scale * scale)
+        packed = _packed_input(torch, shape, gen, dev)
+        outs = [launch_s2d_tail(packed, scale, fn) for fn in builds.values()]
+        torch.cuda.synchronize()
+        for plane, a, b in zip("y cb cr".split(), *outs):
+            _assert_equal(a, b, f"s2d tail builds, scale {scale} {plane}")
+        best = dict.fromkeys(builds, float("inf"))
+        for _ in range(3):
+            for name, fn in builds.items():
+                best[name] = min(best[name], _time_ms(
+                    torch, lambda: launch_s2d_tail(packed, scale, fn)))
+        nbytes = packed.numel() * 2 + sum(t.numel() for t in outs[0])
+        bound, _ = _bound_ms(nbytes, 0, rates)
+        _say(f"s2d tail builds, scale {scale} {shape}: byte-equal; "
+             + ", ".join(f"{name} {ms:.4f} ms" for name, ms in best.items())
+             + f"; bound {bound:.4f} ms (bytes)")
+        del packed, outs
+        torch.cuda.empty_cache()
 
 
 def _head_ulps(torch, got, want):
@@ -608,6 +654,38 @@ def phase_odd(torch, launches, work: Path):
                  chip_bound=True)
 
 
+def phase_scale1_s2d(torch, launches, work: Path):
+    """Even dims at scale 1 on 4:4:4 (chroma subsampling == scale) take
+    the s2d branch: the s2d head, then the tail kernel at scale 1, one
+    launch per batch and no standalone quantize."""
+    import numpy as np
+
+    from downloader_tpu_torch.compute.models.upscaler import UpscalerConfig
+    from downloader_tpu_torch.compute.pipeline import FrameUpscaler
+
+    config = UpscalerConfig(scale=1)
+    frames = 8
+    src, dst = work / "src_s1.y4m", work / "dst_s1.y4m"
+    with open(src, "wb") as fh:
+        _write_y4m(fh, frames, WIDTH, HEIGHT, seed=14, colorspace="444")
+    engine = FrameUpscaler(config)
+    t0 = time.monotonic()
+    with launches.path("scale1_s2d", {"s2d_tail": frames // 8}):
+        done = engine.upscale_y4m(str(src), str(dst))
+    hdr, out = _read_y4m(dst)
+    if (done != frames or (hdr.width, hdr.height, hdr.colorspace) != (WIDTH, HEIGHT, "444")
+            or len(out) != frames or out[0][1].shape != (HEIGHT, WIDTH)):
+        raise AssertionError(f"scale-1 output {hdr.width}x{hdr.height} "
+                             f"C{hdr.colorspace}, {len(out)} frames")
+    _say(f"scale-1 4:4:4 {WIDTH}x{HEIGHT} upscale_y4m (s2d branch): {frames} "
+         f"frames in {time.monotonic() - t0:.2f} s")
+    rng = np.random.default_rng(15)
+    small = [rng.integers(0, 256, (2, 48, 64), np.uint8) for _ in range(3)]
+    _card_vs_cpu("scale-1 s2d", engine.upscale_batch(*small, 1, 1),
+                 FrameUpscaler(config, device="cpu").upscale_batch(*small, 1, 1),
+                 chip_bound=True)
+
+
 def phase_infer(torch, launches):
     """The RGB ``infer`` path on 1080p frames: the full forward, then one
     standalone quantize of the whole (B, 2H, 2W, 3) output."""
@@ -835,6 +913,7 @@ def main() -> int:
         phase_4k(torch, launches, work)                         # 7
         phase_generic(torch, launches, work)                    # 8
         phase_odd(torch, launches, work)                        # 9
+        phase_scale1_s2d(torch, launches, work)                 # 9b
         phase_infer(torch, launches)                            # 10
         torch.cuda.empty_cache()
         phase_throughput(torch, engine)                         # 11

@@ -39,15 +39,16 @@ class TailCoeffs(ctypes.Structure):
                 ("cr", ctypes.c_float * 3)]
 
 
-_void_p, _int, _longlong = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_void_p, _int, _longlong, _float = (ctypes.c_void_p, ctypes.c_int,
+                                    ctypes.c_longlong, ctypes.c_float)
 
 # library (source stem) -> (C symbol, argtypes)
 SIGNATURES = {
     "quantize_u8": ("quantize_u8_launch",
                     [_void_p, _void_p, _longlong, _int, _void_p]),
     "s2d_tail": ("s2d_tail_launch",
-                 [_void_p, _void_p, _void_p, _int, _int, _int, TailCoeffs,
-                  _void_p]),
+                 [_void_p, _void_p, _void_p, _int, _int, _int, _int, _float,
+                  TailCoeffs, _void_p]),
     "s2d_head": ("s2d_head_launch",
                  [_void_p, _void_p, _void_p, _void_p, _int, _int, _int, _int,
                   _void_p]),
@@ -106,16 +107,47 @@ def build() -> Dict[str, Path]:
     return libs
 
 
+def _load(path: Path, name: str):
+    symbol, argtypes = SIGNATURES[name]
+    fn = getattr(ctypes.CDLL(str(path)), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def build_variants(name: str, variants: Dict[str, Dict[str, int]]):
+    """Compile ``csrc/<name>.cu`` once per variant, each with its own
+    ``-D`` macros (``{tag: {macro: value}}``), all at once; return ``{tag:
+    ctypes entry point}``.  For timing a kernel's compile-time options
+    against each other on the card; the port itself runs :func:`function`'s
+    build.  Raises if any build fails."""
+    nvcc = _nvcc()
+    jobs = {}
+    for tag, defines in variants.items():
+        out = BUILD_DIR / _digest() / "variants" / tag / f"lib{name}.so"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        cmd = [nvcc, *NVCC_FLAGS, *(f"-D{k}={v}" for k, v in defines.items()),
+               "-I", str(CSRC), "-o", str(out), str(CSRC / f"{name}.cu")]
+        jobs[tag] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT))
+    fns, failures = {}, []
+    for tag, (out, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode == 0:
+            fns[tag] = _load(out, name)
+        else:
+            failures.append(f"{name} {tag} (exit {proc.returncode}):\n"
+                            f"{log.decode(errors='replace')}")
+    if failures:
+        raise RuntimeError("nvcc failed for " + "\n".join(failures))
+    return fns
+
+
 @functools.lru_cache(maxsize=None)
 def function(name: str):
     """The ctypes entry point of kernel library ``name`` (a key of
     :data:`SIGNATURES`), building the libraries on first use."""
-    symbol, argtypes = SIGNATURES[name]
-    lib = ctypes.CDLL(str(build()[name]))
-    fn = getattr(lib, symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
+    return _load(build()[name], name)
 
 
 def check(rc: int, name: str) -> None:

@@ -14,6 +14,9 @@ Numerics against the reference on XLA's CPU lowering:
   emulate exactly that (:func:`_fma`) and match the JAX tails byte for
   byte; the CUDA kernel (``csrc/s2d_tail.cu``) does the same with
   ``__fmaf_rn``;
+- the sub-pixel mean is that left-to-right sum times ``f32(1/n)``, as
+  XLA's CPU lowering of ``mean(dtype=f32)`` computes it (at scale 3 a
+  division would differ in the last bit);
 - ``ycbcr_to_unit_rgb``/``rgb_to_ycbcr`` are plain f32 sums of products;
   XLA's CPU dot rounds some output channels as an fma chain instead, so
   those differ from the reference by a few ulp (bounds stated in the
@@ -150,14 +153,22 @@ def _contract3(sub: torch.Tensor, row: np.ndarray) -> torch.Tensor:
     return _fma(x2, w2, _fma(x1, w1, acc))
 
 
+def _inv_count(n: int) -> np.float32:
+    """``f32(1/n)``: the factor XLA's CPU lowering of ``mean(dtype=f32)``
+    multiplies the sum by (it does not divide), and the s2d tail kernel's."""
+    return np.float32(1.0 / n)
+
+
 def _mean_subpixels(sub: torch.Tensor, axis: int) -> torch.Tensor:
-    """f32 mean over ``axis``, summed left to right as XLA's CPU reduce
-    does; for scale 2 the /4 is exact."""
+    """f32 mean over ``axis`` as XLA's CPU lowering computes it: the sum
+    taken left to right, then times ``f32(1/n)``.  At scales 1, 2 and 4
+    that equals a division; at scale 3 ``x * f32(1/9)`` and ``x / 9``
+    differ in the last bit on about a tenth of the values."""
     parts = sub.unbind(axis)
     total = parts[0]
     for part in parts[1:]:
         total = total + part
-    return total / len(parts)
+    return total * torch.tensor(_inv_count(len(parts)))
 
 
 def fused_subpixel_ycc(subpixel_rgb: torch.Tensor, scale: int):
@@ -216,41 +227,60 @@ def fused_subpixel_ycc_s2d(packed: torch.Tensor, scale: int):
 
     Input: ``(B, H/2, W/2, 4*scale^2*3)``; channel block ``g = di*2+dj``
     holds the sub-pixel maps of full-res position ``(2i+di, 2j+dj)``.
-    Output: u8 ``y`` at (B, 2H, 2W) and ``cb``, ``cr`` at (B, H, W) —
-    byte-identical to the reference's ``fused_subpixel_ycc_s2d``.
+    Output: u8 ``y`` at (B, H*scale, W*scale) and ``cb``, ``cr`` at (B, H,
+    W) — byte-identical to the reference's ``fused_subpixel_ycc_s2d``.
 
-    A CUDA tensor (bf16, contiguous, scale 2) launches
-    ``csrc/s2d_tail.cu``: the contractions, the sub-pixel mean, all three
-    quantizes and both shuffles in one pass, with no f32 intermediate;
-    ``fused_subpixel_ycc_s2d.launches`` counts its launches.  A CPU
-    tensor takes :func:`fused_subpixel_ycc_s2d_plain`."""
+    A CUDA tensor (bf16, contiguous, any ``scale >= 1``) launches
+    ``csrc/s2d_tail.cu``: one thread per full-res position does the
+    contractions, the sub-pixel mean, all three quantizes and both
+    shuffles, with no f32 intermediate in memory.  Its bound is the bytes
+    (read 6*scale^2 and write scale^2 + 2 per full-res position; 0.149 ms
+    at scale 2 on the 1080p main path's (8, 540, 960, 48) on an H100 SXM,
+    PERF.md).  ``fused_subpixel_ycc_s2d.launches`` counts its launches.
+    A CPU tensor takes :func:`fused_subpixel_ycc_s2d_plain`."""
     if packed.device.type == "cpu":
         return fused_subpixel_ycc_s2d_plain(packed, scale)
     if packed.device.type != "cuda":
         raise ValueError(f"fused_subpixel_ycc_s2d: unsupported device {packed.device}")
-    if scale != 2 or packed.ndim != 4 or packed.shape[-1] != 48:
+    r = int(scale)
+    if r < 1 or packed.ndim != 4 or packed.shape[-1] != 12 * r * r:
         raise ValueError(
-            f"s2d tail kernel takes (B, H/2, W/2, 48) at scale 2, got "
-            f"{tuple(packed.shape)} at scale {scale}")
+            f"s2d tail kernel takes (B, H/2, W/2, 12*scale^2) at a scale >= 1, "
+            f"got {tuple(packed.shape)} at scale {scale}")
     if packed.dtype != torch.bfloat16:
         raise TypeError(f"s2d tail kernel takes bfloat16, got {packed.dtype}")
-    if not packed.is_contiguous() or packed.data_ptr() % 8:
-        raise ValueError("s2d tail kernel needs a contiguous, 8-byte aligned input")
+    # its widest load: a 6*r^2-byte block at a multiple of 6*r^2 (scales
+    # above 4 load one value at a time)
+    align = math.gcd(6 * r * r, 16) if r <= 4 else 2
+    if not packed.is_contiguous() or packed.data_ptr() % align:
+        raise ValueError(f"s2d tail kernel needs a contiguous, {align}-byte "
+                         "aligned input")
+    if packed.shape[0] > 65535:
+        raise ValueError(f"s2d tail kernel takes at most 65535 frames, "
+                         f"got {packed.shape[0]}")
+    out = launch_s2d_tail(packed, r, kernels.function("s2d_tail"))
+    if out[0].numel():
+        fused_subpixel_ycc_s2d.launches += 1
+    return out
+
+
+def launch_s2d_tail(packed: torch.Tensor, r: int, launch):
+    """Allocate the tail's outputs and run ``launch``, a build of
+    ``csrc/s2d_tail.cu``, on a ``packed`` that
+    :func:`fused_subpixel_ycc_s2d` has checked.  Counts nothing: the
+    wrapper counts its own launches, and a timing run of another build
+    (``chip_smoke.py``) is no launch of the port's."""
     b, hh, ww, _ = packed.shape
-    if b > 65535:
-        raise ValueError(f"s2d tail kernel takes at most 65535 frames, got {b}")
     height, width = 2 * hh, 2 * ww
-    luma = torch.empty((b, 2 * height, 2 * width), dtype=torch.uint8,
+    luma = torch.empty((b, height * r, width * r), dtype=torch.uint8,
                        device=packed.device)
     chroma = torch.empty((2, b, height, width), dtype=torch.uint8,
                          device=packed.device)
     if luma.numel():
-        launch = kernels.function("s2d_tail")
         kernels.check(launch(packed.data_ptr(), luma.data_ptr(),
-                             chroma.data_ptr(), b, height, width,
-                             _tail_coeffs(),
+                             chroma.data_ptr(), b, height, width, r,
+                             float(_inv_count(r * r)), _tail_coeffs(),
                              kernels.stream_handle(packed.device)), "s2d_tail")
-        fused_subpixel_ycc_s2d.launches += 1
     return luma, chroma[0], chroma[1]
 
 

@@ -18,10 +18,12 @@ Two versions of the head live here:
   compute dtype and then adds the bias in it: two roundings.
 - :func:`s2d_head_kernel` is the port of the Pallas spike
   ``pallas_s2d_head`` (``scripts/pallas_head_spike.py:35-107``), a
-  hand-written CUDA kernel (``csrc/s2d_head.cu``): an f32 sum over the 16
-  taps, the bias added in f32, and ONE rounding.  The two therefore differ
-  by up to one bf16 ulp.  It runs on the spike's path
-  (``scripts/head_spike.py``), not in the engine.
+  hand-written Hopper kernel (``csrc/s2d_head.cu``: TMA loads, ``wgmma``
+  on bf16 with f32 accumulation): an f32 sum over the 16 taps, the bias
+  added in f32, and ONE rounding.
+  The two therefore differ by up to one bf16 ulp.  It runs on the spike's
+  path (``scripts/head_spike.py``), not in the engine, which mirrors the
+  JAX engine's two-rounding head.
 
 Requires even H and W.
 """
@@ -108,6 +110,16 @@ def s2d_head_kernel_plain(feats: torch.Tensor, k4: torch.Tensor,
     return out
 
 
+def repack_k4(k4: torch.Tensor) -> torch.Tensor:
+    """(4, 4, Cin, Cout) packed kernel -> (16, Cout, Cin): tap ``u*4+v``,
+    then output channel, then input channel (contiguous), the layout the
+    head kernel reads.  A 32-channel slice of 4 taps is one TMA box whose
+    rows are K-major for ``wgmma``'s B operand.  Pure indexing:
+    ``repack_k4(k4)[u*4+v, n, c] == k4[u, v, c, n]``."""
+    kh, kw, cin, cout = k4.shape
+    return k4.reshape(kh * kw, cin, cout).transpose(1, 2).contiguous()
+
+
 def s2d_head_kernel(feats: torch.Tensor, k4: torch.Tensor, bias4: torch.Tensor,
                     out_dtype=torch.bfloat16) -> torch.Tensor:
     """The packed s2d head as one hand-written kernel, the counterpart of
@@ -121,7 +133,18 @@ def s2d_head_kernel(feats: torch.Tensor, k4: torch.Tensor, bias4: torch.Tensor,
     A CUDA tensor launches ``csrc/s2d_head.cu`` on the current stream and
     raises on any other dtype, shape, layout or device — it never gives
     way to cuDNN; ``s2d_head_kernel.launches`` counts its launches.  A
-    CPU tensor takes :func:`s2d_head_kernel_plain`."""
+    CPU tensor takes :func:`s2d_head_kernel_plain`.
+
+    The kernel: persistent blocks, a TMA producer warp and two ``wgmma``
+    consumer warpgroups over 8x32 output tiles; the input window comes in
+    32-channel chunks by TMA (its zero fill is the SAME padding), the
+    weights in 12 KB steps, both through rings of mbarrier-guarded
+    slots; A reaches the tensor cores from registers (``ldmatrix`` over
+    the window), B from shared memory.  Its bound is the bytes: at (8,
+    1080, 1920, 128) 4.65 GB, 1.39 ms at an H100 SXM's 3.35 TB/s (PERF.md
+    has its time).  Every call repacks ``k4`` with :func:`repack_k4` (one
+    196 KB copy, inside the times PERF.md gives); a caller that ran the
+    kernel on fixed weights would repack them once instead."""
     if feats.device.type == "cpu":
         return s2d_head_kernel_plain(feats, k4, bias4, out_dtype)
     if feats.device.type != "cuda":
@@ -147,15 +170,14 @@ def s2d_head_kernel(feats: torch.Tensor, k4: torch.Tensor, bias4: torch.Tensor,
     b, h, w, _ = feats.shape
     if h % 2 or w % 2:
         raise ValueError(f"s2d head kernel needs even dims, got {h}x{w}")
-    if b > 65535:
-        raise ValueError(f"s2d head kernel takes at most 65535 frames, got {b}")
-    if feats.data_ptr() % 16 or k4.data_ptr() % 16:
-        raise ValueError("s2d head kernel needs 16-byte aligned feats and k4")
+    if feats.data_ptr() % 16:
+        raise ValueError("s2d head kernel needs a 16-byte aligned feats")
     out = torch.empty((b, h // 2, w // 2, _COUT), dtype=out_dtype,
                       device=feats.device)
     if out.numel():
+        w16 = repack_k4(k4)
         launch = kernels.function("s2d_head")
-        kernels.check(launch(feats.data_ptr(), k4.data_ptr(), bias4.data_ptr(),
+        kernels.check(launch(feats.data_ptr(), w16.data_ptr(), bias4.data_ptr(),
                              out.data_ptr(), b, h, w,
                              int(out_dtype == torch.float32),
                              kernels.stream_handle(feats.device)), "s2d_head")

@@ -13,9 +13,8 @@ Every branch of the reference's ``core`` (``pipeline.py:232-261``) runs:
   full forward, RGB->YCbCr, chroma downsample and three standalone
   quantizes.
 
-The tails' quantizes launch the CUDA kernels on the card.  The s2d tail
-kernel takes scale 2 only, so on CUDA the s2d branch at any other scale
-raises ``NotImplementedError`` up front instead of running another path.
+The tails' quantizes launch the CUDA kernels on the card, at every
+scale.
 
 Spatial tiling (the reference's ``:42-122``, ``:263-327``) folds halo'd
 tiles of very large frames into the batch dim when ``PIXEL_BUDGET``
@@ -195,19 +194,6 @@ class FrameUpscaler:
                           _tile_halo(self.config.depth),
                           batch=self.batch_for(height, width) // self.n_devices)
 
-    def _check_path(self, height: int, width: int, sub_h: int,
-                    sub_w: int) -> None:
-        """Refuse up front what the CUDA path cannot run, rather than
-        failing inside a kernel or running another path."""
-        scale = self.config.scale
-        if (self.device.type == "cuda" and (sub_h, sub_w) == (scale, scale)
-                and height % 2 == 0 and width % 2 == 0 and scale != 2):
-            raise NotImplementedError(
-                f"scale {scale} with matching chroma subsampling and even "
-                f"dims {width}x{height} takes the s2d tail, whose CUDA kernel "
-                "(csrc/s2d_tail.cu) takes scale 2 only; a scale-generic s2d "
-                "tail kernel is not written yet")
-
     def _unit_rgb(self, y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
                   sub_h: int, sub_w: int) -> torch.Tensor:
         return ycbcr_to_unit_rgb(y.float(),
@@ -304,7 +290,6 @@ class FrameUpscaler:
         """Stage and launch one batch WITHOUT waiting for the device; the
         d2h copies are queued behind the compute.  :meth:`_fetch`
         materializes the result."""
-        self._check_path(y.shape[1], y.shape[2], sub_h, sub_w)
         if self.device.type == "cpu":
             out = self._core(*(torch.from_numpy(np.ascontiguousarray(a))
                                for a in (y, cb, cr)), sub_h, sub_w)

@@ -196,6 +196,27 @@ def test_head_kernel_dispatches_plain_on_cpu():
     assert thead.s2d_head_kernel.launches == before  # no kernel on the CPU
 
 
+def test_head_weight_repack_is_the_kernels_layout_and_round_trips():
+    """The wrapper's weight repack, as the kernel reads it: tap u*4+v,
+    then output channel n, then input channel c contiguous, so that 32
+    channels of 4 taps are one TMA box whose 64-byte rows are K-major for
+    wgmma's B operand.  Pure indexing: it round-trips to k4 exactly."""
+    rng = np.random.default_rng(7)
+    k4 = torch.from_numpy(rng.standard_normal((4, 4, 128, 48)).astype(np.float32)
+                          ).to(torch.bfloat16)
+    w16 = thead.repack_k4(k4)
+    assert w16.shape == (16, 48, 128) and w16.dtype == torch.bfloat16
+    assert w16.is_contiguous()
+    for u, v, c, n in ((0, 0, 0, 0), (1, 2, 37, 5), (3, 3, 127, 47), (2, 1, 64, 24)):
+        assert torch.equal(w16[u * 4 + v, n, c], k4[u, v, c, n])
+    # a TMA box of step (chunk, tap row u) is w16[4u:4u+4, :, 32*chunk:+32]
+    box = w16.view(4, 4, 48, 4, 32)[2, :, :, 1]
+    assert torch.equal(box, k4[2, :, 32:64, :].transpose(1, 2))
+    assert torch.equal(w16.reshape(4, 4, 48, 128).transpose(2, 3), k4)
+    assert torch.equal(w16.view(torch.int16).flatten().sort().values,
+                       k4.view(torch.int16).flatten().sort().values)
+
+
 def test_head_spike_check_on_cpu(capsys):
     """The port's spike entry, as ``python -m
     downloader_tpu_torch.scripts.head_spike check --device cpu`` runs it:

@@ -53,21 +53,33 @@ def test_quantize_u8_kernel_rejects_what_it_does_not_take(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("scale", [1, 2, 3, 4, 5])  # 5: the run-time-scale loop
 @pytest.mark.parametrize("wide", [False, True])
-def test_s2d_tail_kernel_matches_plain(cuda_device, wide):
+def test_s2d_tail_kernel_matches_plain(cuda_device, wide, scale):
     rng = np.random.default_rng(13)
-    shape = (2, 10, 12, 48)
+    shape = (2, 10, 12, 12 * scale * scale)
     if wide:
         x = rng.uniform(-1.5, 1.5, shape) * 2.0 ** rng.integers(-20, 3, shape)
     else:
         x = rng.standard_normal(shape) * 0.6 + 0.3
     packed = torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
     before = tcs.fused_subpixel_ycc_s2d.launches
-    got = tcs.fused_subpixel_ycc_s2d(packed.to(cuda_device), 2)
+    got = tcs.fused_subpixel_ycc_s2d(packed.to(cuda_device), scale)
     torch.cuda.synchronize()
     assert tcs.fused_subpixel_ycc_s2d.launches == before + 1
-    for g, w in zip(got, tcs.fused_subpixel_ycc_s2d_plain(packed, 2)):
+    for g, w in zip(got, tcs.fused_subpixel_ycc_s2d_plain(packed, scale)):
         assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_s2d_tail_kernel_rejects_what_it_does_not_take(cuda_device):
+    packed = torch.zeros((1, 4, 6, 48), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError):
+        tcs.fused_subpixel_ycc_s2d(packed, 3)                 # 48 channels at scale 3
+    with pytest.raises(TypeError):
+        tcs.fused_subpixel_ycc_s2d(packed.float(), 2)
+    with pytest.raises(ValueError):
+        tcs.fused_subpixel_ycc_s2d(packed.transpose(1, 2), 2)
 
 
 def _head_inputs(shape, seed):
@@ -97,6 +109,7 @@ def _head_ulps(got, want):
     ((1, 18, 34, 128), torch.bfloat16),    # ragged: H/2 = 9, W/2 = 17
     ((1, 18, 34, 128), torch.float32),
     ((3, 2, 2, 128), torch.bfloat16),      # one output pixel, all edges
+    ((2, 34, 200, 128), torch.bfloat16),   # ragged tiles at the right edge
 ])
 def test_s2d_head_kernel_matches_plain(cuda_device, shape, out_dtype):
     """Within one bf16 ulp (see :func:`_head_ulps`), >= 99% exact: the
@@ -141,7 +154,8 @@ def test_s2d_head_kernel_rejects_what_it_does_not_take(cuda_device):
 @pytest.mark.cuda
 def test_engine_paths_launch_the_quantize_kernel(cuda_device):
     """The generic tail (4:4:4 at scale 2) quantizes its three planes with
-    the standalone kernel; the s2d branch at scale 1 is refused on CUDA."""
+    the standalone kernel; the s2d branch at scale 1 (4:4:4, even dims)
+    launches the tail kernel once."""
     from downloader_tpu_torch.compute.models.upscaler import UpscalerConfig
     from downloader_tpu_torch.compute.pipeline import FrameUpscaler
 
@@ -157,6 +171,14 @@ def test_engine_paths_launch_the_quantize_kernel(cuda_device):
     cpu.model.load_state_dict(engine.model.state_dict())
     for g, w in zip(out, cpu.upscale_batch(*planes, 1, 1)):
         assert np.abs(g.astype(int) - w.astype(int)).max() <= 1
-    scale1 = FrameUpscaler(UpscalerConfig(features=8, depth=2, scale=1), batch=2)
-    with pytest.raises(NotImplementedError, match="scale-generic"):
-        scale1.upscale_batch(*planes, 1, 1)
+    config1 = UpscalerConfig(features=8, depth=2, scale=1)
+    scale1 = FrameUpscaler(config1, batch=2)
+    before = (tps.quantize_u8.launches, tcs.fused_subpixel_ycc_s2d.launches)
+    out = scale1.upscale_batch(*planes, 1, 1)
+    assert (tps.quantize_u8.launches, tcs.fused_subpixel_ycc_s2d.launches) == (
+        before[0], before[1] + 1)
+    cpu1 = FrameUpscaler(config1, batch=2, device="cpu")
+    cpu1.model.load_state_dict(scale1.model.state_dict())
+    for g, w in zip(out, cpu1.upscale_batch(*planes, 1, 1)):
+        assert g.shape == (2, 12, 16)
+        assert np.abs(g.astype(int) - w.astype(int)).max() <= 3

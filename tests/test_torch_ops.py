@@ -160,9 +160,9 @@ def test_upsample_and_downsample_chroma_exact():
     np.testing.assert_array_equal(down_t, down_j)
 
 
-def _packed(seed: int, wide_exponents: bool = False) -> np.ndarray:
+def _packed(seed: int, wide_exponents: bool = False, scale: int = 2) -> np.ndarray:
     rng = np.random.default_rng(seed)
-    shape = (2, 10, 12, 48)
+    shape = (2, 10, 12, 12 * scale * scale)
     if wide_exponents:
         # values whose sums and products round differently under any
         # other order of operations
@@ -171,21 +171,25 @@ def _packed(seed: int, wide_exponents: bool = False) -> np.ndarray:
     return (rng.standard_normal(shape) * 0.6 + 0.3).astype(np.float32)
 
 
+@pytest.mark.parametrize("scale", [1, 2, 3])
 @pytest.mark.parametrize("wide", [False, True])
-def test_s2d_tail_plain_byte_exact_vs_reference(wide):
-    xj, xt = _bf16(_packed(8, wide))
-    want = jax.jit(lambda p: jcs.fused_subpixel_ycc_s2d(p, 2))(jnp.asarray(xj))
-    got = tcs.fused_subpixel_ycc_s2d_plain(xt, 2)
-    shapes = [(2, 40, 48), (2, 20, 24), (2, 20, 24)]
+def test_s2d_tail_plain_byte_exact_vs_reference(wide, scale):
+    xj, xt = _bf16(_packed(8, wide, scale))
+    want = jax.jit(lambda p: jcs.fused_subpixel_ycc_s2d(p, scale))(jnp.asarray(xj))
+    got = tcs.fused_subpixel_ycc_s2d_plain(xt, scale)
+    shapes = [(2, 20 * scale, 24 * scale), (2, 20, 24), (2, 20, 24)]
     for w, g, shape in zip(want, got, shapes):
         assert g.shape == shape and g.dtype == torch.uint8
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
-def test_s2d_tail_contractions_bitwise_vs_reference():
+@pytest.mark.parametrize("scale", [2, 3])
+def test_s2d_tail_contractions_bitwise_vs_reference(scale):
     """The pre-quantize f32 values themselves match XLA bit for bit: the
-    fma-chain contraction and the left-to-right sub-pixel mean."""
-    xj, xt = _bf16(_packed(9, True).reshape(2, 10, 12, 4, 4, 3))
+    fma-chain contraction and the sub-pixel mean (summed left to right,
+    then times f32(1/r^2): at scale 3 a division differs in the last bit
+    on about a tenth of these values)."""
+    xj, xt = _bf16(_packed(9, True, scale).reshape(2, 10, 12, 4, scale * scale, 3))
     sub = xt.float()
     for i, row in enumerate((tcs._Y_ROW, tcs._CB_ROW, tcs._CR_ROW)):
         ref_row = 255.0 * jcs._RGB2YCC[i]
@@ -198,19 +202,22 @@ def test_s2d_tail_contractions_bitwise_vs_reference():
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
-def test_s2d_tail_dispatches_plain_on_cpu():
-    _, xt = _bf16(_packed(10))
+@pytest.mark.parametrize("scale", [1, 2, 3])
+def test_s2d_tail_dispatches_plain_on_cpu(scale):
+    _, xt = _bf16(_packed(10, scale=scale))
     before = tcs.fused_subpixel_ycc_s2d.launches
-    for a, b in zip(tcs.fused_subpixel_ycc_s2d(xt, 2),
-                    tcs.fused_subpixel_ycc_s2d_plain(xt, 2)):
+    for a, b in zip(tcs.fused_subpixel_ycc_s2d(xt, scale),
+                    tcs.fused_subpixel_ycc_s2d_plain(xt, scale)):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     assert tcs.fused_subpixel_ycc_s2d.launches == before
 
 
-def test_fused_subpixel_tail_byte_exact_vs_reference():
+@pytest.mark.parametrize("scale", [2, 3])
+def test_fused_subpixel_tail_byte_exact_vs_reference(scale):
     rng = np.random.default_rng(11)
-    h12 = (rng.standard_normal((2, 6, 8, 12)) * 0.6 + 0.3).astype(np.float32)
-    want = jcs.fused_subpixel_ycc(jnp.asarray(h12), 2)
-    got = tcs.fused_subpixel_ycc(torch.from_numpy(h12), 2)
+    h12 = (rng.standard_normal((2, 6, 8, 3 * scale * scale)) * 0.6
+           + 0.3).astype(np.float32)
+    want = jcs.fused_subpixel_ycc(jnp.asarray(h12), scale)
+    got = tcs.fused_subpixel_ycc(torch.from_numpy(h12), scale)
     for w, g in zip(want, got):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))

@@ -155,8 +155,7 @@ def test_scale_one_444_matches_jax_engine(tmp_path, width, height):
     """The odd-dims branch needs chroma subsampling == scale and odd
     frame dims: a 4:2:0 Y4M cannot carry odd dims, so the configuration
     that reaches it is scale 1 on 4:4:4.  The even case at scale 1 takes
-    the s2d branch, which on the CPU runs the plain tail (the CUDA tail
-    kernel takes scale 2 only; see the next test)."""
+    the s2d branch: the s2d head and, on the CPU, the plain s2d tail."""
     port, ref = _pair(scale=1, batch=2)
     src = tmp_path / "clip.y4m"
     src.write_bytes(_y4m(width, height, 3, "444", seed=3))
@@ -170,23 +169,23 @@ def test_scale_one_444_matches_jax_engine(tmp_path, width, height):
             _within_reference_bound(g, w)
 
 
-def test_cuda_refuses_the_s2d_branch_at_other_scales():
-    """On CUDA the s2d branch at scale != 2 would reach the scale-2 tail
-    kernel: the engine refuses it up front, before any transfer, and
-    never falls back to the plain tail.  The other branches at scale 1
-    stay open."""
-    config = UpscalerConfig(features=8, depth=2, scale=1)
-    engine = port_pipeline.FrameUpscaler(config, batch=2, device="cpu")
-    engine.device = torch.device("cuda")  # the check reads only the type
-    planes = [np.zeros((1, 12, 16), np.uint8)] * 3
-    with pytest.raises(NotImplementedError, match="scale-generic"):
-        engine.upscale_batch(*planes, 1, 1)
-    engine._check_path(13, 17, 1, 1)     # odd dims: plain head, any scale
-    engine._check_path(12, 16, 2, 2)     # sub != scale: the generic tail
-    scale2 = port_pipeline.FrameUpscaler(UpscalerConfig(features=8, depth=2),
-                                         device="cpu")
-    scale2.device = torch.device("cuda")
-    scale2._check_path(12, 16, 2, 2)     # the main path
+@pytest.mark.parametrize("scale", [1, 2, 3])
+def test_s2d_branch_matches_jax_engine_at_every_scale(scale):
+    """Chroma subsampling == scale with even frame dims takes the s2d head
+    and the s2d tail at any scale (on the card, the tail kernel; no scale
+    is refused).  Planes cut for subsampling ``scale`` go through both
+    engines' ``upscale_batch``."""
+    port, ref = _pair(scale=scale, batch=2)
+    rng = np.random.default_rng(20 + scale)
+    h, w = 12 * scale, 16 * scale
+    y = rng.integers(0, 256, (2, h, w), np.uint8)
+    cb, cr = (rng.integers(0, 256, (2, h // scale, w // scale), np.uint8)
+              for _ in range(2))
+    got = port.upscale_batch(y, cb, cr, scale, scale)
+    want = ref.upscale_batch(y, cb, cr, scale, scale)
+    assert [g.shape for g in got] == [(2, h * scale, w * scale), (2, h, w), (2, h, w)]
+    for g, w_ in zip(got, want):
+        _within_reference_bound(g, w_)
 
 
 def test_upscale_frames_matches_jax_infer():
