@@ -11,8 +11,9 @@ Phases, each failing the run (non-zero exit) on any error:
 2. ``quantize_u8`` (standalone): kernel vs its plain PyTorch version on
    the card, byte-exact, over f32/bf16, out-of-range values, exact .5
    ties, a ragged and a misaligned input, the odd-dims branch's chroma
-   plane and the generic tail's (8, 2160, 3840) f32 plane; timed on the
-   last;
+   plane and the generic tail's (8, 2160, 3840) f32 plane; then
+   ``pixel_shuffle_clip_u8`` on (8, 540, 960, 12) maps, byte-exact with
+   one launch each; timed on the generic tail's plane;
 3. ``fused_subpixel_ycc_s2d``: kernel vs plain on the card, byte-exact,
    at scales 1-5 (wide-exponent and ragged inputs) and on a seeded (8,
    540, 960, 48) bf16 packed head output at scale 2; timed there; then
@@ -58,9 +59,24 @@ Phases, each failing the run (non-zero exit) on any error:
    transfer queue; frames/s over 3 runs with their spread, the share of
    the wall the card spends computing (CUDA events around each batch's
    compute), a per-stage device split (untiled cells), peak memory and
-   the host's h2d/compute/d2h waits.
+   the host's h2d/compute/d2h waits;
+12. training at full width: a seeded 32-frame 1280x720 4:2:0 Y4M with
+   edges and gradients; ``python -m downloader_tpu_torch train`` for 40
+   steps (the last logged loss below the first), then resumed for 10
+   (``resumed from step 40``, ending at step 50, at most 3 steps kept);
+   two steps on the card against two on the CPU's plain path from one
+   seeded init and batch (losses within ``TRAIN_LOSS_RTOL``); the card's
+   checkpoint restored on the CPU bit for bit, and the CPU's resumed on
+   the card; device ms/step (CUDA events) at batch 8 crop 64 and batch
+   16 crop 256, fused against foreach Adam, with peak memory; steps/s
+   through ``train()`` on the clip and the card's computing share (CUDA
+   events, then a profiled run); all of it with every kernel's count at
+   0; then ``upscale --checkpoint-dir`` on phase 5's 1080p stream (2
+   tail launches, an output other than the seeded init's) and the card
+   against the CPU engine from the same checkpoint (<= 3 u8 steps, > 90%
+   exact).
 
-Every path of phases 5-10 runs with every kernel's launch counter set to
+Every path of phases 5-10 and 12 runs with every kernel's launch counter set to
 0 just before it and read just after; each count must be the one the
 path implies (e.g. 3 standalone quantizes per generic-tail batch, 0 head
 kernels on the engine's paths).
@@ -77,6 +93,8 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -183,6 +201,7 @@ def phase_quantize(torch, rates, results):
         torch.cuda.synchronize()
         _assert_equal(got, quantize_u8_plain(x), f"quantize_u8 {label}")
         _say(f"quantize_u8 {label}: byte-exact vs plain ({x.numel()} values)")
+    _shuffle_clip(torch, gen, dev)
     ms = _time_ms(torch, lambda: quantize_u8(x))
     plain_ms = _time_ms(torch, lambda: quantize_u8_plain(x))
     nbytes = x.numel() * (x.element_size() + 1)
@@ -191,6 +210,33 @@ def phase_quantize(torch, rates, results):
                                   bound_by=by, max_abs_err=0, library_ms=None)
     _say(f"quantize_u8 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
          f"bound {bound:.4f} ms ({by}, {nbytes / 1e6:.1f} MB)")
+
+
+def _shuffle_clip(torch, gen, dev):
+    """``pixel_shuffle_clip_u8`` on a 1080p batch's sub-pixel maps: one
+    standalone quantize launch each, byte-exact against shuffle + the
+    plain quantize."""
+    from downloader_tpu_torch.compute.ops.pixel_shuffle import (
+        pixel_shuffle,
+        pixel_shuffle_clip_u8,
+        quantize_u8,
+        quantize_u8_plain,
+    )
+
+    x = torch.randn((8, HEIGHT // 2, WIDTH // 2, 12), generator=gen,
+                    device=dev) * 80 + 128
+    for label, maps in (("f32", x), ("bf16", x.bfloat16())):
+        quantize_u8.launches = 0
+        got = pixel_shuffle_clip_u8(maps, 2)
+        torch.cuda.synchronize()
+        if quantize_u8.launches != 1:
+            raise AssertionError(f"pixel_shuffle_clip_u8 launched the quantize "
+                                 f"kernel {quantize_u8.launches} times, not 1")
+        _assert_equal(got, quantize_u8_plain(pixel_shuffle(maps.float(), 2)),
+                      f"pixel_shuffle_clip_u8 {label}")
+        _say(f"pixel_shuffle_clip_u8 {label} {tuple(maps.shape)} -> "
+             f"{tuple(got.shape)}: byte-exact vs plain, 1 quantize launch")
+    quantize_u8.launches = 0
 
 
 def _packed_input(torch, shape, gen, dev, wide=False):
@@ -365,6 +411,37 @@ def _write_y4m(fh, frames: int, width: int, height: int, seed: int,
     writer = Y4MWriter(fh, hdr)
     for i in range(frames):
         writer.write_frame(*made[i % len(made)])
+
+
+def _write_training_clip(fh, frames: int, width: int, height: int,
+                         seed: int) -> None:
+    """A seeded 4:2:0 Y4M with structure a model can learn: a smooth
+    luma gradient, discs and bars with hard edges that drift from frame
+    to frame, light noise, and smooth chroma gradients."""
+    import numpy as np
+
+    from downloader_tpu_torch.compute.video import Y4MHeader, Y4MWriter
+
+    rng = np.random.default_rng(seed)
+    hdr = Y4MHeader(width=width, height=height, colorspace="420jpeg")
+    ch, cw = hdr.chroma_shape
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float32)
+    cy, cx = np.mgrid[0:ch, 0:cw].astype(np.float32)
+    discs = [(rng.uniform(0, height), rng.uniform(0, width),
+              rng.uniform(20, 120), rng.uniform(-60, 60),
+              rng.uniform(-6, 6), rng.uniform(-6, 6)) for _ in range(12)]
+    writer = Y4MWriter(fh, hdr)
+    for i in range(frames):
+        y = 40 + 150 * xx / width + 40 * yy / height
+        for y0, x0, r, level, vy, vx in discs:
+            inside = (yy - y0 - vy * i) ** 2 + (xx - x0 - vx * i) ** 2 < r * r
+            y = np.where(inside, y + level, y)
+        y = np.where(((xx + 3 * i) // 48) % 2 == (yy // 96) % 2, y + 12, y)
+        y = y + rng.normal(0, 3, y.shape)
+        cb = 128 + 50 * np.sin(cx / cw * 6.0 + 0.1 * i) * np.cos(cy / ch * 3.0)
+        cr = 128 + 50 * np.cos(cx / cw * 4.0 - 0.1 * i) * np.sin(cy / ch * 5.0)
+        writer.write_frame(*(np.clip(np.rint(p), 0, 255).astype(np.uint8)
+                             for p in (y, cb, cr)))
 
 
 def _read_y4m(path: Path):
@@ -845,6 +922,332 @@ def phase_throughput(torch, engine):
             f"{k} {v:.4f}" for k, v in hops.items()))
 
 
+TRAIN_FRAMES, TRAIN_WIDTH, TRAIN_HEIGHT = 32, 1280, 720
+# card against the CPU's plain path, one train step each from the same
+# init and batch: bf16 forwards whose sums cuDNN and the CPU order
+# differently.  The first loss is the forward alone; the second follows
+# one Adam step, whose update is +-lr wherever a gradient's sign holds
+TRAIN_LOSS_RTOL = (1e-3, 1e-2)
+
+
+def _train_cli(args, what: str) -> list:
+    """``python -m downloader_tpu_torch train ARGS`` as a user runs it;
+    its output lines.  Any exit but 0 fails the run."""
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "downloader_tpu_torch", "train", *map(str, args)],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"train CLI ({what}) exited {proc.returncode}: "
+                           f"{proc.stderr[-2000:]}")
+    lines = proc.stdout.strip().splitlines()
+    for line in lines:
+        _say(f"train CLI ({what}): {line}")
+    _say(f"train CLI ({what}): exit 0 ({time.monotonic() - t0:.2f} s with "
+         "process start)")
+    return lines
+
+
+def _logged_losses(lines) -> dict:
+    return {int(line.split()[1]): float(line.split()[3])
+            for line in lines if line.startswith("step ")}
+
+
+def _train_batch(torch, paths, batch: int, crop: int, seed: int):
+    """One (lr, hr) batch cut as the trainer cuts it, as CPU tensors."""
+    import numpy as np
+
+    from downloader_tpu_torch.compute.trainer import box_downsample, hr_crop_stream
+
+    crops = hr_crop_stream(paths, crop, np.random.default_rng(seed))
+    hr = np.stack([next(crops) for _ in range(batch)])
+    return (torch.from_numpy(box_downsample(hr, 2).astype(np.float32)),
+            torch.from_numpy(hr))
+
+
+def _train_card_vs_cpu(torch, paths, work: Path):
+    """Two steps on the card and two on the CPU's plain path from the same
+    seeded init and batch; then a checkpoint saved on the card restores on
+    the CPU as the same state, and one saved on the CPU resumes on the
+    card."""
+    from downloader_tpu_torch.compute import checkpoint
+    from downloader_tpu_torch.compute.models.upscaler import UpscalerConfig
+    from downloader_tpu_torch.compute.train import make_train_step
+
+    config = UpscalerConfig()
+    card_step, card_init = make_train_step(config)
+    cpu_step, cpu_init = make_train_step(config, device="cpu")
+    lr, hr = _train_batch(torch, paths, 8, 64, seed=31)
+    card, cpu = card_init(5), cpu_init(5)
+    for name, value in card.model.state_dict().items():
+        if not torch.equal(value.cpu(), cpu.model.state_dict()[name]):
+            raise AssertionError(f"seeded init differs on the card: {name}")
+    lr_d, hr_d = lr.cuda(), hr.cuda()
+    got = [float(card_step(card, lr_d, hr_d)) for _ in range(2)]
+    want = [float(cpu_step(cpu, lr, hr)) for _ in range(2)]
+    rel = [abs(g - w) / w for g, w in zip(got, want)]
+    _say(f"train step, full width, batch 8 crop 64: card losses "
+         f"{got[0]:.7f}, {got[1]:.7f}; CPU {want[0]:.7f}, {want[1]:.7f}; "
+         f"relative differences {rel[0]:.3e}, {rel[1]:.3e} (bounds "
+         f"{TRAIN_LOSS_RTOL[0]:g}, {TRAIN_LOSS_RTOL[1]:g})")
+    if any(r > bound for r, bound in zip(rel, TRAIN_LOSS_RTOL)):
+        raise AssertionError(f"train step card vs CPU: relative {rel}")
+
+    card_dir, cpu_dir = work / "ckpt_card", work / "ckpt_cpu"
+    checkpoint.save_state(card_dir, 2, card.model.state_dict(),
+                          card.optimizer.state_dict())
+    restored = cpu_init(9)
+    step, params, opt_state = checkpoint.restore_state(
+        card_dir, restored.model.state_dict())
+    restored.model.load_state_dict(params)
+    checkpoint.load_optimizer_state(restored.optimizer, opt_state)
+    card_opt = card.optimizer.state_dict()["state"]
+    for i, entry in restored.optimizer.state_dict()["state"].items():
+        for key in ("step", "exp_avg", "exp_avg_sq"):
+            if not torch.equal(entry[key].float(), card_opt[i][key].cpu().float()):
+                raise AssertionError(f"optimizer state {i}/{key} differs after "
+                                     "the card -> CPU round trip")
+    for name, value in card.model.state_dict().items():
+        if not torch.equal(value.cpu(), restored.model.state_dict()[name]):
+            raise AssertionError(f"param {name} differs after the card -> CPU "
+                                 "round trip")
+    cpu_next = float(cpu_step(restored, lr, hr))
+    checkpoint.save_state(cpu_dir, 3, restored.model.state_dict(),
+                          restored.optimizer.state_dict())
+    resumed = card_init(11)
+    _, params, opt_state = checkpoint.restore_state(cpu_dir, resumed.model.state_dict())
+    resumed.model.load_state_dict(params)
+    checkpoint.load_optimizer_state(resumed.optimizer, opt_state)
+    card_next = float(card_step(resumed, lr_d, hr_d))
+    if not (step == 2 and all(map(math.isfinite, (cpu_next, card_next)))):
+        raise AssertionError(f"resumed steps: {step}, {cpu_next}, {card_next}")
+    _say(f"checkpoint saved on the card restores on the CPU bit for bit "
+         f"(params, Adam moments, step count {int(card_opt[0]['step'])}) and "
+         f"steps on (loss {cpu_next:.7f}); saved on the CPU it resumes on the "
+         f"card (loss {card_next:.7f})")
+
+
+# train steps queued at once behind a sleep kernel: a step makes ~150
+# launches, and CUDA blocks the host once about a thousand are pending,
+# so 5 steps are all queued before the card starts on them; 10 or 20 are
+# not, and the later ones would run at the host's pace
+QUEUED_STEPS = 5
+
+
+def _train_step_times(torch, paths):
+    """Device ms per step by CUDA events, back to back on a fixed batch,
+    at the trainer's default size and at a card-sized one, with the fused
+    Adam (the port's) and the foreach Adam in turns; the host's own pace
+    per step, synchronised and not; peak memory."""
+    from downloader_tpu_torch.compute.models.upscaler import UpscalerConfig
+    from downloader_tpu_torch.compute.pipeline import upscaler_flops_per_frame
+    from downloader_tpu_torch.compute.train import make_train_step
+
+    config = UpscalerConfig()
+    step, init = make_train_step(config)
+    for batch, crop in ((8, 64), (16, 256)):
+        lr, hr = (t.cuda() for t in _train_batch(torch, paths, batch, crop, seed=41))
+        state = init(0)
+        fused = state.optimizer
+        foreach = torch.optim.Adam(state.model.parameters(), lr=1e-3,
+                                   betas=(0.9, 0.999), eps=1e-8, foreach=True)
+        step(state, lr, hr)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        best = {"fused": float("inf"), "foreach": float("inf")}
+        for name in ("fused", "foreach") * 3:
+            state.optimizer = fused if name == "fused" else foreach
+            best[name] = min(best[name], _time_ms(
+                torch, lambda: step(state, lr, hr), reps=QUEUED_STEPS))
+        peak = torch.cuda.max_memory_allocated()
+        state.optimizer = fused
+        t0 = time.monotonic()
+        for _ in range(10):
+            step(state, lr, hr)
+            torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 100
+        torch.cuda._sleep(100_000_000)  # the card stays busy meanwhile
+        t0 = time.monotonic()
+        for _ in range(QUEUED_STEPS):
+            step(state, lr, hr)
+        enqueue_ms = (time.monotonic() - t0) * 1e3 / QUEUED_STEPS
+        torch.cuda.synchronize()
+        if (batch, crop) == (8, 64):
+            _step_runtime_calls(torch, lambda: step(state, lr, hr))
+        # forward, its recompute under the checkpoint, and a backward of
+        # twice the forward's matmul work
+        tflop = 4 * upscaler_flops_per_frame(config, crop // 2, crop // 2) * batch / 1e12
+        _say(f"train step batch {batch} crop {crop}: device {best['fused']:.3f} "
+             f"ms/step with the fused Adam, {best['foreach']:.3f} with the "
+             f"foreach Adam (CUDA events, median of {QUEUED_STEPS} steps queued "
+             f"back to back, best of 3 turns); host {wall_ms:.3f} ms per "
+             f"synchronised step, {enqueue_ms:.3f} ms per step queued without "
+             f"waiting; {tflop:.4f} TFLOP of conv work a step, "
+             f"{tflop / best['fused'] * 1e3:.1f} TFLOP/s; peak memory "
+             f"{peak / 2**30:.3f} GiB")
+        del lr, hr, state, fused, foreach
+        torch.cuda.empty_cache()
+
+
+def _step_runtime_calls(torch, run_step, steps: int = 3) -> None:
+    """What the host calls into the CUDA runtime during a few train steps
+    (``torch.profiler`` with CPU activity): launches, and any call that
+    waits for the card, with the ops that read a device value."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            run_step()
+        torch.cuda.synchronize()
+    waits = ("aten::item", "aten::_local_scalar_dense", "aten::nonzero",
+             "aten::is_nonzero")
+    calls = sorted((e for e in prof.key_averages()
+                    if e.key.startswith("cu") or e.key in waits),
+                   key=lambda e: -e.cpu_time_total)
+    _say(f"train step batch 8 crop 64, {steps} steps profiled on the host: "
+         + ", ".join(f"{e.key} x{e.count} {e.cpu_time_total / 1e3:.3f} ms"
+                     for e in calls[:12]))
+
+
+def _train_end_to_end(torch, paths, steps: int = 30):
+    """``train()`` on the clip as the CLI runs it (batch 8, crop 64), after
+    a short warm-up: steps/s over the wall, and the share of that wall in
+    which the card computes (CUDA events around each step, which also
+    count any gap inside a step; then a profiled run summing the kernels'
+    own device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from downloader_tpu_torch.compute import trainer
+
+    settings = trainer.TrainerSettings(steps=steps, log_every=10)
+    trainer.train(paths, trainer.TrainerSettings(steps=3))  # warm-up
+    spans = []
+    make = trainer.make_train_step
+
+    def traced_make(*args, **kwargs):
+        step, init = make(*args, **kwargs)
+
+        def traced(state, lr, hr):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            loss = step(state, lr, hr)
+            end.record()
+            spans.append((start, end))
+            return loss
+
+        return traced, init
+
+    lines = []
+    trainer.make_train_step = traced_make
+    try:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        summary = trainer.train(paths, settings, log=lines.append)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    finally:
+        trainer.make_train_step = make
+    busy = sum(s.elapsed_time(e) for s, e in spans) / 1e3
+    for line in lines:
+        _say(f"train() on the clip: {line}")
+    _say(f"train() end to end, batch 8 crop 64, {steps} steps: "
+         f"{steps / wall:.3f} steps/s ({1e3 * wall / steps:.2f} ms/step of "
+         f"wall); card computing {busy / wall:.2%} of the wall by CUDA events "
+         f"around each step ({1e3 * busy / steps:.3f} ms/step)")
+
+    t0 = time.monotonic()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer.train(paths, trainer.TrainerSettings(steps=10))
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    def device_us(event):
+        return getattr(event, "self_device_time_total",
+                       getattr(event, "self_cuda_time_total", 0))
+
+    kernels = [e for e in prof.key_averages() if device_us(e)]
+    kernel_us = sum(map(device_us, kernels))
+    top = sorted(kernels, key=device_us, reverse=True)[:6]
+    if kernel_us:
+        _say(f"train() profiled, 10 steps: {sum(e.count for e in kernels)} "
+             f"device activities of {len(kernels)} kinds, {kernel_us / 1e3:.3f} "
+             f"ms of {1e3 * wall:.1f} ms wall ({kernel_us / 1e6 / wall:.2%}; "
+             "the profiler's own cost is in the wall); top: " + ", ".join(
+                 f"{e.key[:48]} x{e.count} {device_us(e) / 1e3:.2f} ms"
+                 for e in top))
+    else:
+        _say("train() profiled: the profiler recorded no device time; the "
+             "kernels' share is not measured")
+    return summary
+
+
+def phase_train(torch, launches, work: Path):
+    """Training at full width: the ``train`` CLI as a user runs it (40
+    steps, then resumed for 10), the card against the CPU, checkpoints
+    across devices, step times and end-to-end steps/s under a launch
+    count of 0 for every kernel, then ``upscale --checkpoint-dir``."""
+    import numpy as np
+
+    from downloader_tpu_torch import cli
+    from downloader_tpu_torch.compute.pipeline import FrameUpscaler
+
+    t_phase = time.monotonic()
+    data = work / "train_media"
+    data.mkdir()
+    clip = data / "clip.y4m"
+    with open(clip, "wb") as fh:
+        _write_training_clip(fh, TRAIN_FRAMES, TRAIN_WIDTH, TRAIN_HEIGHT, seed=21)
+    ckpt = work / "ckpt"
+
+    first = _train_cli(["--data", data, "--steps", 40, "--save-every", 20,
+                        "--checkpoint-dir", ckpt], "40 steps")
+    losses = _logged_losses(first)
+    if (list(losses) != [1, 20, 40] or not losses[40] < losses[1]
+            or first[-1].split()[:4] != ["trained", "to", "step", "40"]):
+        raise AssertionError(f"train CLI: losses {losses}, last line {first[-1]!r}")
+    second = _train_cli(["--data", data, "--steps", 10, "--save-every", 20,
+                         "--checkpoint-dir", ckpt], "resumed, 10 steps")
+    kept = sorted(int(name) for name in os.listdir(ckpt))
+    if (second[0] != "resumed from step 40" or "trained to step 50" not in second[-1]
+            or kept != [20, 40, 50]):
+        raise AssertionError(f"train CLI resume: {second[0]!r}, {second[-1]!r}, "
+                             f"steps kept {kept}")
+    _say(f"loss trajectory (train CLI, batch 8 crop 64): " + ", ".join(
+        f"step {s} {v:.6f}" for s, v in {**losses, **_logged_losses(second)}.items())
+         + f"; checkpoints kept {kept}")
+
+    paths = [str(clip)]
+    with launches.path("train", {}):
+        _train_card_vs_cpu(torch, paths, work)
+        _train_step_times(torch, paths)
+        _train_end_to_end(torch, paths)
+
+    # the trained checkpoint through the upscale CLI: 16 frames of 1080p,
+    # one tail launch per batch of 8, as on the main path
+    src, seeded = work / "src.y4m", work / "dst.y4m"
+    dst = work / "dst_trained.y4m"
+    with launches.path("upscale_checkpoint", {"s2d_tail": FRAMES // 8}):
+        wall = _run_cli(cli, src, dst, "--checkpoint-dir", ckpt)
+    hdr, out = _read_y4m(dst)
+    if (hdr.width, hdr.height) != (2 * WIDTH, 2 * HEIGHT) or len(out) != FRAMES:
+        raise AssertionError(f"trained output {hdr.width}x{hdr.height}, "
+                             f"{len(out)} frames")
+    if dst.read_bytes() == seeded.read_bytes():
+        raise AssertionError("upscale --checkpoint-dir wrote the seeded init's output")
+    _, seeded_out = _read_y4m(seeded)
+    changed = float(np.mean([(a != b).mean() for a, b in zip(out[0], seeded_out[0])]))
+    _say(f"upscale CLI main() --checkpoint-dir (step 50): {FRAMES} frames in "
+         f"{wall:.2f} s, {hdr.width}x{hdr.height}; {changed:.2%} of the first "
+         "frame's bytes differ from the seeded init's output")
+    _, frames = _read_y4m(src)
+    small = [np.stack([f[i] for f in frames[:2]]) for i in range(3)]
+    small = [small[0][:, :96, :128], small[1][:, :48, :64], small[2][:, :48, :64]]
+    _card_vs_cpu("trained checkpoint", FrameUpscaler(checkpoint_dir=str(ckpt))
+                 .upscale_batch(*small, 2, 2),
+                 FrameUpscaler(device="cpu", checkpoint_dir=str(ckpt))
+                 .upscale_batch(*small, 2, 2), chip_bound=True)
+    _say(f"train phase: {time.monotonic() - t_phase:.1f} s")
+
+
 def _stack_planes(data: bytes, batch: int):
     """The first ``batch`` frames of a Y4M stream as stacked planes."""
     import numpy as np
@@ -917,14 +1320,16 @@ def main() -> int:
         phase_infer(torch, launches)                            # 10
         torch.cuda.empty_cache()
         phase_throughput(torch, engine)                         # 11
+        del engine
+        torch.cuda.empty_cache()
+        phase_train(torch, launches, work)                      # 12
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     line = {"kernels": []}
     for k, (_, source, replaces) in kernels_of.items():
-        by_path = {path: counts[k] for path, counts in launches.by_path.items()
-                   if counts[k]}
-        if not by_path:
+        by_path = {path: counts[k] for path, counts in launches.by_path.items()}
+        if not any(by_path.values()):
             raise AssertionError(f"kernel {k} launched on no driven path")
         line["kernels"].append({
             "name": k, "route": "cuda",

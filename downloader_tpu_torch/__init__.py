@@ -4,8 +4,9 @@ compute plane, for an NVIDIA H100.
 The JAX package ``downloader_tpu`` stays the reference; this package
 imports ``torch`` and never JAX or anything of ``downloader_tpu``: it
 keeps its own copy of every framework-free helper it needs.  What is
-ported so far is the upscale compute plane's inference, reached through
-the ``upscale`` CLI (``python -m downloader_tpu_torch upscale SRC DST``):
+ported so far is the compute plane's inference and training, reached
+through the CLI (``python -m downloader_tpu_torch upscale SRC DST``,
+``python -m downloader_tpu_torch train --data MEDIA``):
 
 - ``compute/video.py``, ``compute/transcode.py``, ``utils/stale.py``,
   ``compute/parallel/transfer.py`` — copies of the reference's
@@ -16,6 +17,8 @@ the ``upscale`` CLI (``python -m downloader_tpu_torch upscale SRC DST``):
   kernels (``sm_90a``) and their ``nvcc``/``ctypes`` loader;
 - ``compute/pipeline.py`` — the batched frame engine, every branch and
   spatial tiling; ``compute/infer.py`` — the RGB inference path;
+- ``compute/train.py``, ``compute/trainer.py``, ``compute/checkpoint.py``
+  — the train step, the training loop and the port's own checkpoints;
 - ``scripts/head_spike.py`` — the s2d-head kernel against the engine's
   cuDNN head (``python -m downloader_tpu_torch.scripts.head_spike``).
 

@@ -8,4 +8,7 @@
 - ``kernels/``  — builds ``csrc/*.cu`` with ``nvcc`` and binds them with
                   ``ctypes``
 - ``pipeline.py`` — the batched frame engine the ``upscale`` CLI drives
+- ``train.py``, ``trainer.py``, ``checkpoint.py`` — the train step, the
+                  training loop the ``train`` CLI drives, and the
+                  checkpoints both commands share
 """

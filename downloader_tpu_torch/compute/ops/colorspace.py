@@ -80,6 +80,15 @@ def _plain_contract(planes, weights):
     return out
 
 
+def ycbcr_to_rgb(y: torch.Tensor, cb: torch.Tensor,
+                 cr: torch.Tensor) -> torch.Tensor:
+    """Full-res (B, H, W) f32 planes in 0..255 -> (B, H, W, 3) RGB in
+    0..255: the inverse matrix on (Y, Cb-128, Cr-128)."""
+    ycc = (y, cb - 128.0, cr - 128.0)
+    return torch.stack(
+        [_plain_contract(ycc, _rows(_YCC2RGB, j)) for j in range(3)], dim=-1)
+
+
 def ycbcr_to_unit_rgb(y: torch.Tensor, cb: torch.Tensor,
                       cr: torch.Tensor) -> torch.Tensor:
     """(B, H, W) f32 YCbCr planes in 0..255 -> (B, H, W, 3) RGB in

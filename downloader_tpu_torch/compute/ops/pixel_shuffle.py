@@ -1,4 +1,5 @@
-"""Sub-pixel shuffle (depth-to-space) and the u8 quantize tail.
+"""Sub-pixel shuffle (depth-to-space), the u8 quantize tail, and the two
+together (``pixel_shuffle_clip_u8``).
 
 ``pixel_shuffle`` keeps the reference's channel order: channel
 ``(di*r + dj)*C + c`` of pixel (h, w) lands at (h*r+di, w*r+dj, c).
@@ -29,6 +30,13 @@ def pixel_shuffle(x: torch.Tensor, scale: int) -> torch.Tensor:
     x = x.reshape(b, h, w, scale, scale, c)
     x = x.permute(0, 1, 3, 2, 4, 5)
     return x.reshape(b, h * scale, w * scale, c)
+
+
+def pixel_shuffle_clip_u8(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """Inference tail: shuffle + clip to [0, 255] + round to uint8, the
+    shuffle a reshape and the quantize :func:`quantize_u8` (one launch of
+    the kernel on a CUDA tensor)."""
+    return quantize_u8(pixel_shuffle(x.float(), scale).contiguous())
 
 
 def quantize_u8_plain(x: torch.Tensor) -> torch.Tensor:

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from .checkpoint import restore_state
 from .models.upscaler import Upscaler, UpscalerConfig
 from .ops.colorspace import (
     downsample_chroma,
@@ -163,14 +164,23 @@ class FrameUpscaler:
         params: Optional[Mapping[str, torch.Tensor]] = None,
         seed: int = 0,
         device=None,
+        checkpoint_dir: Optional[str] = None,
     ):
         """``params`` is a state dict of :class:`Upscaler` (e.g. from
-        :func:`..weights.from_flax`); without it the model is seeded from
-        ``seed``.  ``device`` defaults to CUDA and raises without a GPU;
-        pass ``"cpu"`` for the plain PyTorch path."""
+        :func:`..weights.from_flax`); ``checkpoint_dir`` a directory the
+        trainer saved to, whose latest step's params are loaded (its
+        optimizer state is ignored; a missing, foreign or mismatched
+        checkpoint raises, as :func:`..checkpoint.restore_state` does).
+        Without either the model is seeded from ``seed``.  ``device``
+        defaults to CUDA and raises without a GPU; pass ``"cpu"`` for the
+        plain PyTorch path."""
+        if params is not None and checkpoint_dir is not None:
+            raise ValueError("pass params or checkpoint_dir, not both")
         self.device = resolve_device(device)
         self.config = config
         model = Upscaler(config, seed=seed)
+        if checkpoint_dir is not None:
+            _step, params, _opt = restore_state(checkpoint_dir, model.state_dict())
         if params is not None:
             model.load_state_dict(params)
         self.model = model.to(self.device).eval().requires_grad_(False)

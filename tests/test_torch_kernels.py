@@ -1,7 +1,7 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the
-card.  Every test here needs an NVIDIA GPU (the kernels have no CPU
-mode) and skips without one; this file imports no JAX, so it runs on a
-machine that has only PyTorch:
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+train step against the CPU's, on the card.  Every test here needs an
+NVIDIA GPU (the kernels have no CPU mode) and skips without one; this
+file imports no JAX, so it runs on a machine that has only PyTorch:
 
     python -m pytest tests/test_torch_kernels.py -m cuda
 """
@@ -182,3 +182,59 @@ def test_engine_paths_launch_the_quantize_kernel(cuda_device):
     for g, w in zip(out, cpu1.upscale_batch(*planes, 1, 1)):
         assert g.shape == (2, 12, 16)
         assert np.abs(g.astype(int) - w.astype(int)).max() <= 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pixel_shuffle_clip_u8_launches_the_quantize_kernel_once(cuda_device, dtype):
+    x = torch.from_numpy(np.random.default_rng(17).uniform(
+        -40, 300, (2, 6, 10, 12)).astype(np.float32)).to(dtype)
+    before = tps.quantize_u8.launches
+    got = tps.pixel_shuffle_clip_u8(x.to(cuda_device), 2).cpu()
+    torch.cuda.synchronize()
+    assert tps.quantize_u8.launches == before + 1
+    assert torch.equal(got, tps.pixel_shuffle_clip_u8(x, 2))
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu_and_checkpoints_cross(
+        cuda_device, tmp_path):
+    """One seeded init and batch, two steps on each device: losses within
+    1e-3 and 1e-2 relative (bf16 sums in cuDNN's order; the second after
+    one Adam step), no kernel of the port launched; the card's checkpoint
+    restores on the CPU as the same state and steps on there, and resumes
+    on the card."""
+    from downloader_tpu_torch.compute import checkpoint
+    from downloader_tpu_torch.compute.models.upscaler import UpscalerConfig
+    from downloader_tpu_torch.compute.ops.s2d_head import s2d_head_kernel
+    from downloader_tpu_torch.compute.train import make_train_step
+
+    config = UpscalerConfig(features=32, depth=3)
+    card_step, card_init = make_train_step(config, device=cuda_device)
+    cpu_step, cpu_init = make_train_step(config, device="cpu")
+    rng = np.random.default_rng(18)
+    low = torch.from_numpy(rng.uniform(0, 1, (4, 16, 16, 3)).astype(np.float32))
+    high = low.repeat_interleave(2, 1).repeat_interleave(2, 2)
+    wrappers = (tps.quantize_u8, tcs.fused_subpixel_ycc_s2d, s2d_head_kernel)
+    before = [w.launches for w in wrappers]
+    card, cpu = card_init(3), cpu_init(3)
+    got = [float(card_step(card, low.to(cuda_device), high.to(cuda_device)))
+           for _ in range(2)]
+    want = [float(cpu_step(cpu, low, high)) for _ in range(2)]
+    assert [w.launches for w in wrappers] == before
+    assert abs(got[0] - want[0]) <= 1e-3 * want[0]
+    assert abs(got[1] - want[1]) <= 1e-2 * want[1]
+
+    checkpoint.save_state(tmp_path / "card", 2, card.model.state_dict(),
+                          card.optimizer.state_dict())
+    for init, step, device in ((cpu_init, cpu_step, "cpu"),
+                               (card_init, card_step, cuda_device)):
+        state = init(9)
+        _, params, opt_state = checkpoint.restore_state(
+            tmp_path / "card", state.model.state_dict())
+        state.model.load_state_dict(params)
+        checkpoint.load_optimizer_state(state.optimizer, opt_state)
+        for name, value in card.model.state_dict().items():
+            assert torch.equal(state.model.state_dict()[name].cpu(), value.cpu())
+        assert np.isfinite(float(step(state, low.to(device), high.to(device))))
+        assert float(state.optimizer.state_dict()["state"][0]["step"]) == 3.0

@@ -17,7 +17,9 @@ import torch
 from downloader_tpu.compute.ops import colorspace as jcs
 from downloader_tpu.compute.ops.pixel_shuffle import (
     _pallas_quantize_u8,
+    _pallas_shuffle_clip,
     pixel_shuffle as jax_pixel_shuffle,
+    pixel_shuffle_clip_u8 as jax_pixel_shuffle_clip_u8,
 )
 from downloader_tpu.compute.ops import s2d_head as jhead
 from downloader_tpu_torch.compute.ops import colorspace as tcs
@@ -83,6 +85,45 @@ def test_quantize_u8_dispatches_plain_on_cpu():
     np.testing.assert_array_equal(tps.quantize_u8(x).numpy(),
                                   tps.quantize_u8_plain(x).numpy())
     assert tps.quantize_u8.launches == before  # no kernel on the CPU
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("scale", [1, 2, 3])
+def test_pixel_shuffle_clip_u8_matches_reference(dtype, scale):
+    """Byte-exact against the JAX tail and its Pallas kernel (interpret
+    mode), ties and out-of-range values included; on the CPU no kernel
+    launches."""
+    rng = np.random.default_rng(scale)
+    x = rng.uniform(-40, 300, (2, 8, 6, 3 * scale * scale)).astype(np.float32)
+    ties = (rng.integers(-3, 258, x.shape) + 0.5).astype(np.float32)
+    mask = rng.random(x.shape) < 0.3
+    x[mask] = ties[mask]
+    xj, xt = _bf16(x) if dtype == "bf16" else (x, torch.from_numpy(x))
+    before = tps.quantize_u8.launches
+    got = tps.pixel_shuffle_clip_u8(xt, scale).numpy()
+    assert tps.quantize_u8.launches == before
+    assert got.shape == (2, 8 * scale, 6 * scale, 3) and got.dtype == np.uint8
+    np.testing.assert_array_equal(got, np.asarray(jax_pixel_shuffle_clip_u8(
+        jnp.asarray(xj), scale)))
+    np.testing.assert_array_equal(got, np.asarray(_pallas_shuffle_clip(
+        jnp.asarray(xj), scale, interpret=True)))
+
+
+def test_ycbcr_to_rgb_within_one_ulp_of_255():
+    """Plain f32 sums of products against XLA's CPU dot, which may round
+    a channel as an fma chain: within one ulp at 255 (3.05e-5), R and G
+    exact."""
+    rng = np.random.default_rng(8)
+    planes = [rng.integers(0, 256, (2, 16, 24)).astype(np.float32)
+              for _ in range(3)]
+    want = np.asarray(jax.jit(jcs.ycbcr_to_rgb)(*planes))
+    got = tcs.ycbcr_to_rgb(*map(torch.from_numpy, planes)).numpy()
+    assert got.shape == want.shape == (2, 16, 24, 3)
+    np.testing.assert_allclose(got, want, rtol=0, atol=3.1e-5)
+    np.testing.assert_array_equal(got[..., :2], want[..., :2])
+    # and it inverts rgb_to_ycbcr to within f32 rounding
+    back = tcs.ycbcr_to_rgb(*tcs.rgb_to_ycbcr(torch.from_numpy(got))).numpy()
+    np.testing.assert_allclose(back, got, rtol=0, atol=2e-3)
 
 
 def test_pack_s2d_kernel_matches_reference():
