@@ -74,9 +74,23 @@ Phases, each failing the run (non-zero exit) on any error:
    0; then ``upscale --checkpoint-dir`` on phase 5's 1080p stream (2
    tail launches, an output other than the seeded init's) and the card
    against the CPU engine from the same checkpoint (<= 3 u8 steps, > 90%
-   exact).
+   exact);
+13. the staging service at full width: the port's ``build_service``
+   in-process (an in-memory broker, a filesystem store, a local HTTP
+   origin serving a seeded 16-frame 1920x1080 4:2:0 Y4M) takes two
+   ``Download`` jobs at once on one engine (``instance.max_concurrent_jobs``
+   2); both must be staged with their done markers and 2 ``Convert``
+   messages, each stream byte-identical to the engine's own
+   ``upscale_to`` of the clip, each job's hop ledger must hold ``h2d``,
+   ``compute`` and ``d2h``, ``frames_upscaled_total`` must read 32 and
+   the tail kernel must launch twice a job; the wall per job and the
+   frames/s through the stage are printed beside the card line; then
+   ``python -m downloader_tpu_torch`` with no arguments (the service, the
+   stage on the card) must answer ``/health`` (500 ``Not Running Jobs``
+   when idle) and ``/metrics``, and stop with "shutdown complete" and
+   exit 0 on SIGTERM.
 
-Every path of phases 5-10 and 12 runs with every kernel's launch counter set to
+Every path of phases 5-10, 12 and 13 runs with every kernel's launch counter set to
 0 just before it and read just after; each count must be the one the
 path implies (e.g. 3 standalone quantizes per generic-tail batch, 0 head
 kernels on the engine's paths).
@@ -90,6 +104,7 @@ result.  Bounds are data-sheet figures picked by the card's name.
 
 from __future__ import annotations
 
+import base64
 import contextlib
 import io
 import json
@@ -1248,6 +1263,199 @@ def phase_train(torch, launches, work: Path):
     _say(f"train phase: {time.monotonic() - t_phase:.1f} s")
 
 
+SERVICE_JOBS = 2  # jobs published at once; max_concurrent_jobs is 2
+
+
+async def _drive_service(torch, launches, work: Path, clip: Path) -> dict:
+    """Two jobs of ``clip`` through the port's ``build_service`` at once:
+    an in-memory broker, a filesystem store, a local HTTP origin; the
+    staged streams, markers, records and metrics, read back."""
+    from aiohttp import web
+
+    from downloader_tpu_torch import schemas
+    from downloader_tpu_torch.app import build_service
+    from downloader_tpu_torch.mq import InMemoryBroker
+    from downloader_tpu_torch.platform.config import ConfigNode
+    from downloader_tpu_torch.stages.upload import parse_done_marker
+    from downloader_tpu_torch.store.fs import FilesystemObjectStore
+
+    body = clip.read_bytes()
+
+    async def serve(_request):
+        return web.Response(body=body)
+
+    app = web.Application()
+    app.router.add_get("/{job}/clip.y4m", serve)
+    origin = web.AppRunner(app)
+    await origin.setup()
+    site = web.TCPSite(origin, "127.0.0.1", 0)
+    await site.start()
+    base = f"http://127.0.0.1:{site._server.sockets[0].getsockname()[1]}"
+    broker = InMemoryBroker(max_redeliveries=3)
+    store = FilesystemObjectStore(str(work / "service_store"))
+    config = ConfigNode({"instance": {
+        "download_path": str(work / "service_downloads"),
+        "max_concurrent_jobs": SERVICE_JOBS,
+        "upscale": {"enabled": True},  # UpscalerConfig(), batch 8, cuda
+    }})
+    orchestrator, metrics, _telemetry = build_service(config, broker, store)
+    await orchestrator.start()
+    jobs = [f"service-{i}" for i in range(SERVICE_JOBS)]
+    staged_name = base64.b64encode(b"clip.2x.y4m").decode()
+    try:
+        # 2 tail launches a job: 16 frames at batch 8
+        with launches.path("service", {"s2d_tail": SERVICE_JOBS * FRAMES // 8}):
+            t0 = time.monotonic()
+            for job in jobs:
+                broker.publish(schemas.DOWNLOAD_QUEUE, schemas.encode(
+                    schemas.Download(media=schemas.Media(
+                        id=job, creator_id="chip-smoke",
+                        type=schemas.MediaType.Value("MOVIE"),
+                        source=schemas.SourceType.Value("HTTP"),
+                        source_uri=f"{base}/{job}/clip.y4m"))))
+            await broker.join(schemas.DOWNLOAD_QUEUE, timeout=600)
+            wall = time.monotonic() - t0
+        result = {"wall": wall, "converts": len(broker.published(
+            schemas.CONVERT_QUEUE)), "jobs": {}}
+        for job in jobs:
+            record = orchestrator.registry.get(job)
+            marker = await store.get_object("triton-staging", f"{job}/original/done")
+            result["jobs"][job] = {
+                "state": record.state, "workload": record.workload,
+                "done": parse_done_marker(marker)["done"],
+                "stage_seconds": dict(record.stage_seconds),
+                "hops": record.hops.summary() if record.hops is not None else {},
+                "staged": await store.get_object(
+                    "triton-staging", f"{job}/original/{staged_name}"),
+            }
+        result["frames_upscaled"] = metrics.frames_upscaled._value.get()
+        result["engine"] = orchestrator.stage_resources["upscale.engine"]
+    finally:
+        await orchestrator.shutdown(grace_seconds=30)
+        await origin.cleanup()
+    return result
+
+
+def _service_entry_point(work: Path) -> None:
+    """``python -m downloader_tpu_torch`` with no arguments, as an operator
+    starts the service: the memory broker, a filesystem store, the stage
+    on; ``/health`` until it answers, ``/metrics``, then SIGTERM."""
+    import signal
+    import socket
+    import urllib.error
+    import urllib.request
+
+    conf = work / "service_config"
+    conf.mkdir()
+    (conf / "converter.yaml").write_text(
+        f"instance:\n  download_path: {work / 'entry_downloads'}\n"
+        "  upscale: {enabled: true}\n"
+        "rabbitmq: {backend: memory}\n"
+        f"minio: {{backend: fs, root: {work / 'entry_store'}}}\n")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, CONFIG_PATH=str(conf), PORT=str(port))
+
+    def get(path):
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                        timeout=10) as resp:
+                return resp.status, resp.read().decode()
+        except urllib.error.HTTPError as err:
+            return err.code, err.read().decode()
+
+    log_path = work / "service_entry.log"
+    t0 = time.monotonic()
+    with open(log_path, "wb") as log:
+        proc = subprocess.Popen([sys.executable, "-m", "downloader_tpu_torch"],
+                                cwd=REPO, env=env, stdout=log,
+                                stderr=subprocess.STDOUT)
+        try:
+            health = None
+            while health is None:
+                if proc.poll() is not None or time.monotonic() - t0 > 120:
+                    raise RuntimeError("the service did not answer: "
+                                       + log_path.read_text()[-2000:])
+                try:
+                    health = get("/health")
+                except (urllib.error.URLError, ConnectionError):
+                    time.sleep(0.2)
+            up = time.monotonic() - t0
+            status, text = get("/metrics")
+            series = [line for line in text.splitlines()
+                      if "frames_upscaled_total" in line
+                      and not line.startswith("#")]
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out = log_path.read_text()
+    if (health[0] != 500 or "Not Running Jobs" not in health[1]
+            or status != 200 or not series or rc != 0
+            or "upscale stage enabled" not in out
+            or "shutdown complete" not in out):
+        raise AssertionError(f"service entry point: /health {health}, "
+                             f"/metrics {status} {series}, exit {rc}: {out[-2000:]}")
+    _say(f"python -m downloader_tpu_torch (the service): answered /health "
+         f"{health[0]} {health[1].strip()} after {up:.2f} s, /metrics "
+         f"{series[0]!r}; SIGTERM -> 'shutdown complete', exit {rc}")
+
+
+def phase_service(torch, launches, work: Path, card_line: str):
+    """The staging service at full width: two concurrent 1080p jobs
+    through ``build_service`` on one engine, each staged stream held
+    byte for byte against the engine's own ``upscale_to``; then the
+    no-argument entry point started, probed and stopped."""
+    import asyncio
+
+    clip = work / "service_src.y4m"
+    with open(clip, "wb") as fh:
+        _write_y4m(fh, FRAMES, WIDTH, HEIGHT, seed=13)
+    result = asyncio.run(_drive_service(torch, launches, work, clip))
+    engine = result.pop("engine")
+    if result["converts"] != SERVICE_JOBS:
+        raise AssertionError(f"service: {result['converts']} Convert messages")
+    _say(f"service: {SERVICE_JOBS} jobs staged, {result['converts']} Convert "
+         f"messages; frames_upscaled_total {result['frames_upscaled']:.0f}")
+    if result["frames_upscaled"] != SERVICE_JOBS * FRAMES:
+        raise AssertionError(f"frames_upscaled {result['frames_upscaled']}")
+    want = io.BytesIO()
+    with open(clip, "rb") as fh:
+        frames = engine.upscale_to(fh, want)
+    want = want.getvalue()
+    for job, got in result["jobs"].items():
+        hops = got["hops"]
+        if (got["state"], got["workload"], got["done"]) != ("DONE", "UPSCALE", True):
+            raise AssertionError(f"{job}: {got['state']} {got['workload']} "
+                                 f"done={got['done']}")
+        if got["staged"] != want:
+            raise AssertionError(f"{job}: the staged stream ({len(got['staged'])} "
+                                 f"bytes) differs from the engine's upscale_to "
+                                 f"({len(want)} bytes)")
+        if not {"h2d", "compute", "d2h"} <= set(hops):
+            raise AssertionError(f"{job}: hop ledger {hops}")
+        stages = got["stage_seconds"]
+        _say(f"{job}: DONE, UPSCALE class, done marker; staged "
+             f"{len(got['staged'])} bytes byte-identical to the engine's "
+             f"upscale_to ({frames} frames); stage seconds "
+             + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+             + f"; wall {sum(stages.values()):.3f} s; "
+             f"{FRAMES / stages['upscale']:.2f} frames/s through the stage; "
+             "engine hops " + ", ".join(
+                 f"{h} {hops[h]['seconds']:.4f} s / {hops[h]['bytes']} B"
+                 for h in ("h2d", "compute", "d2h")) + f" ({card_line})")
+    _say(f"service: {SERVICE_JOBS * FRAMES} frames of {WIDTH}x{HEIGHT} in "
+         f"{result['wall']:.3f} s from publish to the last ack, "
+         f"{SERVICE_JOBS * FRAMES / result['wall']:.2f} frames/s end to end "
+         f"through the service, two jobs at once ({card_line})")
+    del engine
+    torch.cuda.empty_cache()
+    _service_entry_point(work)
+
+
 def _stack_planes(data: bytes, batch: int):
     """The first ``batch`` frames of a Y4M stream as stacked planes."""
     import numpy as np
@@ -1323,6 +1531,8 @@ def main() -> int:
         del engine
         torch.cuda.empty_cache()
         phase_train(torch, launches, work)                      # 12
+        torch.cuda.empty_cache()
+        phase_service(torch, launches, work, card_line)         # 13
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -1,16 +1,24 @@
-"""downloader_tpu_torch — the PyTorch/CUDA port of ``downloader_tpu``'s
-compute plane, for an NVIDIA H100.
+"""downloader_tpu_torch — the PyTorch/CUDA port of ``downloader_tpu``,
+for an NVIDIA H100.
 
 The JAX package ``downloader_tpu`` stays the reference; this package
 imports ``torch`` and never JAX or anything of ``downloader_tpu``: it
-keeps its own copy of every framework-free helper it needs.  What is
-ported so far is the compute plane's inference and training, reached
-through the CLI (``python -m downloader_tpu_torch upscale SRC DST``,
-``python -m downloader_tpu_torch train --data MEDIA``):
+keeps its own copy of every framework-free module it needs.
 
-- ``compute/video.py``, ``compute/transcode.py``, ``utils/stale.py``,
+``python -m downloader_tpu_torch`` with no arguments runs the staging
+service (``app.main``: download -> process -> [upscale] -> upload), as
+``python -m downloader_tpu`` does; with a subcommand it runs the port's
+CLI (``upscale SRC DST``, ``train --data MEDIA``).
+
+- ``app``, ``orchestrator``, ``health``, ``codec``, ``control/``,
+  ``fleet/``, ``incident/``, ``mq/``, ``origins/``, ``platform/``,
+  ``schemas/``, ``stages/``, ``store/``, ``torrent/``, ``utils/`` — the
+  service: copies of the reference's modules, held to them by
+  ``tests/test_torch_service_copies.py``; ``stages/upscale.py`` runs the
+  port's engine;
+- ``compute/video.py``, ``compute/transcode.py``,
   ``compute/parallel/transfer.py`` — copies of the reference's
-  framework-free modules;
+  framework-free compute helpers;
 - ``compute/models/``, ``compute/ops/``, ``compute/weights.py`` — the
   model, its ops and the flax <-> torch weight bridge;
 - ``compute/csrc/`` + ``compute/kernels/`` — the hand-written CUDA
@@ -28,6 +36,13 @@ Everything runs on the card unless the caller asks for the CPU.
 from __future__ import annotations
 
 __version__ = "0.1.0"
+
+# backport asyncio pieces the service relies on when the runtime is
+# older than 3.11 (no-op otherwise), as the reference does at import
+from .utils.compat import install as _install_compat
+
+_install_compat()
+del _install_compat
 
 
 def resolve_device(device=None):

@@ -1,5 +1,14 @@
+"""``python -m downloader_tpu_torch``: with no arguments the staging
+service (``app.main``), as ``python -m downloader_tpu`` runs it; with a
+subcommand (``upscale``, ``train``) the port's CLI."""
+
 import sys
 
-from .cli import main
+if len(sys.argv) > 1:
+    from .cli import main
 
-sys.exit(main())
+    sys.exit(main())
+
+from .app import main
+
+main()

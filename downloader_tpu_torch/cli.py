@@ -82,8 +82,9 @@ def _build_parser() -> argparse.ArgumentParser:
                        help="dir to save to / resume from")
     train.add_argument("--save-every", type=int, default=100)
     train.add_argument("--model-axis", type=int, default=1,
-                       help="tensor-parallel axis size (only 1 until the "
-                            "multi-GPU slice)")
+                       help="tensor-parallel axis size; read only with more "
+                            "than one visible GPU, which waits for the "
+                            "multi-GPU slice")
     train.add_argument("--seed", type=int, default=0)
     train.add_argument("--scale", type=int, default=2,
                        help="upscale factor (match the upscale engine's)")

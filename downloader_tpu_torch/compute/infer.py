@@ -12,7 +12,8 @@ of 128, which 3 RGB channels never are; the function is the same.)
 from __future__ import annotations
 
 import functools
-from typing import Callable, Mapping
+import threading
+from typing import Callable, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -24,8 +25,12 @@ from .pipeline import no_tf32
 
 
 @functools.lru_cache(maxsize=4)
-def _model(config: UpscalerConfig, device: torch.device) -> Upscaler:
-    return Upscaler(config).to(device).eval().requires_grad_(False)
+def _model(config: UpscalerConfig,
+           device: torch.device) -> Tuple[Upscaler, threading.Lock]:
+    """The module shared by every caller of one (config, device), and the
+    lock that serialises the calls that swap their params into it."""
+    return (Upscaler(config).to(device).eval().requires_grad_(False),
+            threading.Lock())
 
 
 def make_infer_fn(config: UpscalerConfig = UpscalerConfig(), device=None,
@@ -37,7 +42,9 @@ def make_infer_fn(config: UpscalerConfig = UpscalerConfig(), device=None,
     (B, H, W, C) uint8, a tensor or a numpy array; the result is (B,
     H*scale, W*scale, C) uint8 on the device.  The model is built once
     per (config, device); each call runs it on ``params`` as given,
-    copying only the tensors that are not on the device yet.
+    copying only the tensors that are not on the device yet.  Calls on one
+    module take turns for the forward pass: ``functional_call`` swaps the
+    caller's params into the shared module for its length.
 
     ``device`` defaults to CUDA and raises without a GPU; pass ``"cpu"``
     for the plain PyTorch path.  A ``mesh`` (the reference's data-parallel
@@ -47,7 +54,7 @@ def make_infer_fn(config: UpscalerConfig = UpscalerConfig(), device=None,
             "make_infer_fn(mesh=...): data-parallel inference over several "
             "GPUs is not ported yet")
     dev = resolve_device(device)
-    model = _model(config, dev)
+    model, lock = _model(config, dev)
 
     @torch.inference_mode()
     def infer(params: Mapping[str, torch.Tensor], frames_u8) -> torch.Tensor:
@@ -57,7 +64,7 @@ def make_infer_fn(config: UpscalerConfig = UpscalerConfig(), device=None,
             raise TypeError(f"infer takes uint8 frames, got {frames_u8.dtype}")
         weights = {k: v.to(dev) for k, v in params.items()}
         x = frames_u8.to(dev).float() / 255.0
-        with no_tf32():
+        with lock, no_tf32():
             out = torch.func.functional_call(model, weights, (x,))
         return quantize_u8((out.float() * 255.0).contiguous())
 

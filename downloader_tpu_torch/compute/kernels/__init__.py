@@ -22,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict
 
@@ -74,9 +75,27 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+# one build at a time in a process (concurrent stage jobs may reach
+# their first kernel together); launch counts are bumped under a lock too
+_BUILD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, the launch count of a kernel's
+    wrapper, safely across threads."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+
+
 def build() -> Dict[str, Path]:
     """Compile every ``csrc/*.cu`` not yet built for the current sources;
     return ``{stem: path of lib<stem>.so}``."""
+    with _BUILD_LOCK:
+        return _build()
+
+
+def _build() -> Dict[str, Path]:
     out_dir = BUILD_DIR / _digest()
     sources = sorted(CSRC.glob("*.cu"))
     libs = {src.stem: out_dir / f"lib{src.stem}.so" for src in sources}

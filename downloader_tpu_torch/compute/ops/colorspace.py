@@ -269,7 +269,7 @@ def fused_subpixel_ycc_s2d(packed: torch.Tensor, scale: int):
                          f"got {packed.shape[0]}")
     out = launch_s2d_tail(packed, r, kernels.function("s2d_tail"))
     if out[0].numel():
-        fused_subpixel_ycc_s2d.launches += 1
+        kernels.count_launch(fused_subpixel_ycc_s2d)
     return out
 
 

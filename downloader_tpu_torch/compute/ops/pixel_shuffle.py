@@ -67,7 +67,7 @@ def quantize_u8(x: torch.Tensor) -> torch.Tensor:
     kernels.check(launch(x.data_ptr(), out.data_ptr(), x.numel(),
                          int(x.dtype == torch.bfloat16),
                          kernels.stream_handle(x.device)), "quantize_u8")
-    quantize_u8.launches += 1
+    kernels.count_launch(quantize_u8)
     return out
 
 

@@ -181,7 +181,7 @@ def s2d_head_kernel(feats: torch.Tensor, k4: torch.Tensor, bias4: torch.Tensor,
                              out.data_ptr(), b, h, w,
                              int(out_dtype == torch.float32),
                              kernels.stream_handle(feats.device)), "s2d_head")
-        s2d_head_kernel.launches += 1
+        kernels.count_launch(s2d_head_kernel)
     return out
 
 

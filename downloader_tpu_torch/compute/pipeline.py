@@ -43,6 +43,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
+import time
 from typing import Iterable, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -121,20 +123,38 @@ def _tile_anchors(dim: int, splits: int, halo: int) -> "list[tuple[int, int]]":
     return out
 
 
+# no_tf32's process-wide state: how many calls are inside it, and the
+# flags the first of them found
+_TF32_LOCK = threading.Lock()
+_tf32_users = 0
+_tf32_saved: Tuple[bool, bool] = (False, False)
+
+
 @contextlib.contextmanager
 def no_tf32():
     """Run cuDNN's convs and cuBLAS's matmuls in true f32 (the f32-compute
     configuration must not drop to TF32; bf16 compute is unaffected),
-    then restore the process-wide flags for any other torch code."""
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    then restore the process-wide flags for any other torch code.
+
+    Safe across threads (concurrent stage jobs share one engine): TF32
+    stays off while any call is inside, and the last one to leave puts
+    back the flags the first one found."""
+    global _tf32_users, _tf32_saved
+    with _TF32_LOCK:
+        if _tf32_users == 0:
+            _tf32_saved = (torch.backends.cudnn.allow_tf32,
+                           torch.backends.cuda.matmul.allow_tf32)
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        _tf32_users += 1
     try:
         yield
     finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = saved
+        with _TF32_LOCK:
+            _tf32_users -= 1
+            if _tf32_users == 0:
+                (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32) = _tf32_saved
 
 
 @dataclasses.dataclass
@@ -300,11 +320,20 @@ class FrameUpscaler:
         """Stage and launch one batch WITHOUT waiting for the device; the
         d2h copies are queued behind the compute.  :meth:`_fetch`
         materializes the result."""
-        if self.device.type == "cpu":
-            out = self._core(*(torch.from_numpy(np.ascontiguousarray(a))
-                               for a in (y, cb, cr)), sub_h, sub_w)
-            return _InFlight(out, None, None, [])
         planes = (y, cb, cr)
+        if self.device.type == "cpu":
+            # the same three hops as on the card, around the steps that
+            # stand for them here: wrapping, the (synchronous) compute,
+            # and the conversion back in _fetch
+            with timed_hop(self.hop_sink, "h2d",
+                           int(sum(a.nbytes for a in planes))):
+                dev = [torch.from_numpy(np.ascontiguousarray(a))
+                       for a in planes]
+            t0 = time.monotonic()
+            out = self._core(*dev, sub_h, sub_w)
+            self.hop_sink.note("compute", sum(int(t.numel()) for t in out),
+                               time.monotonic() - t0)
+            return _InFlight(out, None, None, [])
         with timed_hop(self.hop_sink, "h2d",
                        int(sum(a.nbytes for a in planes))):
             pinned = [torch.empty(a.shape, dtype=torch.uint8, pin_memory=True)
@@ -326,13 +355,18 @@ class FrameUpscaler:
     def _fetch(self, handle: _InFlight) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Materialize one dispatched batch, billing ``compute`` as the
         wait for the compute event and ``d2h`` as the wait for the rest
-        of the copies (mostly done by then: they started at dispatch)."""
+        of the copies (mostly done by then: they started at dispatch);
+        on the CPU ``d2h`` is the conversion to numpy."""
         nbytes = sum(int(t.numel()) for t in handle.outputs)
-        if handle.computed is not None:
-            with timed_hop(self.hop_sink, "compute", nbytes):
-                handle.computed.synchronize()
+        if handle.computed is None:
+            # the CPU: compute was billed at dispatch
             with timed_hop(self.hop_sink, "d2h", nbytes):
-                handle.copied.synchronize()
+                y2, cb2, cr2 = (t.numpy() for t in handle.outputs)
+            return y2, cb2, cr2
+        with timed_hop(self.hop_sink, "compute", nbytes):
+            handle.computed.synchronize()
+        with timed_hop(self.hop_sink, "d2h", nbytes):
+            handle.copied.synchronize()
         handle.keep.clear()
         y2, cb2, cr2 = (t.numpy() for t in handle.outputs)
         return y2, cb2, cr2

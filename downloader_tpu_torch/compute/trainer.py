@@ -14,8 +14,9 @@ media, as the reference's is.  Batches cross to the card through pinned
 buffers with non-blocking copies, and the loss is read back only at log
 steps, so the host never waits for the card in between.
 
-It runs on one device.  A mesh (``model_axis`` != 1, data parallelism
-over every visible GPU) waits for the multi-GPU slice.
+It runs on one device.  As in the reference, ``model_axis`` is read only
+where more than one device is visible; there a mesh (data parallelism
+over every visible GPU) waits for the multi-GPU slice, so it raises.
 """
 
 from __future__ import annotations
@@ -143,7 +144,10 @@ def train(paths: Sequence[str], settings: TrainerSettings = TrainerSettings(),
     plain PyTorch path."""
     emit = log or (lambda _line: None)
     dev = resolve_device(device)
-    if settings.model_axis != 1:
+    # the model axis splits a mesh, as in the reference, which reads it
+    # only with more than one device; one card trains as one device
+    if (settings.model_axis != 1 and dev.type == "cuda"
+            and torch.cuda.device_count() > 1):
         raise NotImplementedError(
             f"model_axis {settings.model_axis}: tensor parallelism comes "
             "with the multi-GPU slice; the trainer runs on one device")

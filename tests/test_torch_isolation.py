@@ -5,8 +5,13 @@ Checked in a fresh interpreter: this test process may already hold jax
 """
 
 import os
+import signal
+import socket
 import subprocess
 import sys
+import time
+import urllib.error
+import urllib.request
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -20,7 +25,8 @@ names = ["downloader_tpu_torch"] + [
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-banned = ("jax", "jaxlib", "flax", "optax", "orbax", "triton", "downloader_tpu")
+banned = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore", "triton",
+          "downloader_tpu")
 hits = sorted(m for m in sys.modules
               if any(m == b or m.startswith(b + ".") for b in banned))
 print(len(names), "IMPORTED")
@@ -108,3 +114,99 @@ def test_train_command_imports_no_jax_or_reference():
     lines = proc.stdout.splitlines()
     assert "trained to step 2 (loss" in proc.stdout, lines
     assert lines[-1] == "BANNED []", proc.stdout
+
+
+_SERVICE_CONFIG = """\
+instance:
+  download_path: {root}/downloads
+  upscale: {{enabled: true, features: 8, depth: 2, batch: 4, device: cpu}}
+rabbitmq: {{backend: memory}}
+minio: {{backend: fs, root: {root}/store}}
+"""
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _get(url: str):
+    try:
+        with urllib.request.urlopen(url, timeout=5) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as err:
+        return err.code, err.read().decode()
+
+
+def test_service_entry_point_serves_and_stops(tmp_path):
+    """``python -m downloader_tpu_torch`` with no arguments runs the
+    staging service, the upscale stage on the CPU: it answers ``/health``
+    (500 ``Not Running Jobs`` when idle, the reference's semantics) and
+    ``/metrics``, stops cleanly on SIGTERM, and imports no JAX and nothing
+    of the JAX package (``-X importtime`` lists every module it loaded)."""
+    (tmp_path / "converter.yaml").write_text(
+        _SERVICE_CONFIG.format(root=tmp_path))
+    port = _free_port()
+    env = dict(os.environ, CONFIG_PATH=str(tmp_path), PORT=str(port),
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    log_path = tmp_path / "service.log"
+    with open(log_path, "wb") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-X", "importtime", "-m", "downloader_tpu_torch"],
+            cwd=tmp_path, env=env, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            deadline = time.monotonic() + 60
+            health = None
+            while health is None:
+                assert proc.poll() is None, log_path.read_text()[-3000:]
+                assert time.monotonic() < deadline, "the service never answered"
+                try:
+                    health = _get(f"http://127.0.0.1:{port}/health")
+                except (urllib.error.URLError, ConnectionError):
+                    time.sleep(0.1)
+            assert health[0] == 500 and "Not Running Jobs" in health[1], health
+            status, metrics = _get(f"http://127.0.0.1:{port}/metrics")
+            assert status == 200 and "frames_upscaled_total" in metrics
+            proc.send_signal(signal.SIGTERM)
+            assert proc.wait(timeout=30) == 0
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out = log_path.read_text()
+    assert "upscale stage enabled" in out and "shutdown complete" in out
+    loaded = {line.rsplit("|", 1)[1].strip() for line in out.splitlines()
+              if line.startswith("import time:") and "|" in line}
+    assert "downloader_tpu_torch.stages.upscale" in loaded
+    banned = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore",
+              "downloader_tpu")
+    assert sorted(m for m in loaded
+                  if any(m == b or m.startswith(b + ".") for b in banned)) == []
+
+
+_REGISTRY_PROBE = r"""
+import sys
+from downloader_tpu_torch.stages import base
+for name in sorted(base._REGISTRY):
+    print(name, base.get_stage_factory(name).__module__)
+hits = sorted(m for m in sys.modules if m == "downloader_tpu"
+              or m.startswith("downloader_tpu.") or m.split(".")[0] == "jax")
+print("BANNED", hits)
+"""
+
+
+def test_stage_registry_resolves_to_the_port():
+    """Every name of the port's stage registry resolves, in a fresh
+    interpreter, to a ``downloader_tpu_torch.stages`` module."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", _REGISTRY_PROBE], cwd=REPO,
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert lines[-1] == "BANNED []", lines
+    resolved = dict(line.split() for line in lines[:-1])
+    assert set(resolved) == {"download", "process", "upload", "upscale"}
+    for name, module in resolved.items():
+        assert module == f"downloader_tpu_torch.stages.{name}"
