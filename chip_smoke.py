@@ -88,9 +88,26 @@ Phases, each failing the run (non-zero exit) on any error:
    ``python -m downloader_tpu_torch`` with no arguments (the service, the
    stage on the card) must answer ``/health`` (500 ``Not Running Jobs``
    when idle) and ``/metrics``, and stop with "shutdown complete" and
-   exit 0 on SIGTERM.
+   exit 0 on SIGTERM;
+14. the operator surface at full width: the port's broker copy
+   (``tests/test_torch_miniamqp.py``, real AMQP bytes over loopback), the
+   port's service in-process on it (``rabbitmq: {backend: amqp}``, a
+   filesystem store, the stage at ``UpscalerConfig()``, batch 8, on the
+   card) with its health/control server, and a local HTTP origin serving
+   a seeded 16-frame 1920x1080 4:2:0 Y4M; then, each as a subprocess
+   ``python -m downloader_tpu_torch <command>`` as an operator runs it,
+   every exit code checked: ``submit --wait`` (exits 0 on the job's
+   Convert), ``status``, ``jobs show`` (DONE, ``upscale`` among the stage
+   seconds, the h2d/compute/d2h hops), ``jobs events`` (the upscale
+   frames event), ``trace show`` (the ``stage.upscale`` span) and
+   ``incident list`` (empty); the staged stream byte-identical to the
+   engine's ``upscale_to`` of the clip, its done marker, one ``Convert``,
+   ``frames_upscaled_total`` 16 and 2 tail launches on the ``operator``
+   path; the wall of ``submit --wait``, the CLI's start-up (``status
+   --help``) and the job's stage seconds and hops are printed beside the
+   card line.
 
-Every path of phases 5-10, 12 and 13 runs with every kernel's launch counter set to
+Every path of phases 5-10, 12, 13 and 14 runs with every kernel's launch counter set to
 0 just before it and read just after; each count must be the one the
 path implies (e.g. 3 standalone quantizes per generic-tail batch, 0 head
 kernels on the engine's paths).
@@ -1456,6 +1473,195 @@ def phase_service(torch, launches, work: Path, card_line: str):
     _service_entry_point(work)
 
 
+# phase 14's functions: the isolation test runs their imports in a fresh
+# interpreter and requires no JAX and nothing of the JAX package
+OPERATOR_FUNCTIONS = ("phase_operator", "_drive_operator", "_operator_cli")
+OPERATOR_JOB = "operator-1"
+OPERATOR_UPSCALE = {"enabled": True}  # UpscalerConfig(), batch 8, on the card
+
+
+def _tests_on_path() -> None:
+    """The repo's ``tests/`` on ``sys.path``, as ``bench.py`` puts it: the
+    port's broker copy lives there."""
+    tests = str(REPO / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+
+
+async def _operator_cli(env: dict, *args: str) -> tuple:
+    """``python -m downloader_tpu_torch <args>`` in a subprocess, as an
+    operator runs it (never blocking the loop that serves the broker, the
+    origin and the service): its wall from start to exit, stdout and
+    stderr.  A non-zero exit raises."""
+    import asyncio
+
+    t0 = time.monotonic()
+    proc = await asyncio.create_subprocess_exec(
+        sys.executable, "-m", "downloader_tpu_torch", *args, cwd=REPO, env=env,
+        stdout=asyncio.subprocess.PIPE, stderr=asyncio.subprocess.PIPE)
+    try:
+        async with asyncio.timeout(300):
+            out, err = await proc.communicate()
+    finally:
+        if proc.returncode is None:
+            proc.kill()
+            await proc.wait()
+    wall = time.monotonic() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"operator command {' '.join(args)} exited "
+                           f"{proc.returncode}: {err.decode()[-2000:]}")
+    return wall, out.decode(), err.decode()
+
+
+async def _drive_operator(launches, work: Path, clip: Path) -> dict:
+    """One job of ``clip`` submitted with the port's CLI to the port's
+    service, running in this process on the port's broker copy, then read
+    back through the CLI's control-API commands and the store."""
+    import asyncio
+
+    from aiohttp import web
+
+    from downloader_tpu_torch import schemas
+    from downloader_tpu_torch.app import build_service
+    from downloader_tpu_torch.control.registry import DONE, TERMINAL_STATES
+    from downloader_tpu_torch.health import start_server
+    from downloader_tpu_torch.platform.config import ConfigNode
+    from downloader_tpu_torch.stages.upload import parse_done_marker
+    from downloader_tpu_torch.store.fs import FilesystemObjectStore
+    from test_torch_miniamqp import MiniAmqpServer
+
+    body = clip.read_bytes()
+
+    async def serve(_request):
+        return web.Response(body=body)
+
+    app = web.Application()
+    app.router.add_get("/clip.y4m", serve)
+    origin = web.AppRunner(app)
+    await origin.setup()
+    site = web.TCPSite(origin, "127.0.0.1", 0)
+    await site.start()
+    uri = f"http://127.0.0.1:{site._server.sockets[0].getsockname()[1]}/clip.y4m"
+    broker = await MiniAmqpServer().start()
+    conf = work / "operator_config"
+    conf.mkdir()
+    (conf / "converter.yaml").write_text(
+        f'rabbitmq: {{backend: amqp}}\nservices: {{rabbitmq: "{broker.url}"}}\n')
+    env = dict(os.environ, CONFIG_PATH=str(conf))
+    store = FilesystemObjectStore(str(work / "operator_store"))
+    config = ConfigNode({
+        "instance": {"download_path": str(work / "operator_downloads"),
+                     "upscale": OPERATOR_UPSCALE},
+        "rabbitmq": {"backend": "amqp"},
+        "services": {"rabbitmq": broker.url},
+    })
+    orchestrator, metrics, _telemetry = build_service(config, None, store)
+    runner = None
+    try:
+        await orchestrator.start()
+        runner = await start_server(orchestrator, metrics, port=0)
+        url = f"http://127.0.0.1:{runner.addresses[0][1]}"
+        result = {"startup": (await _operator_cli(env, "status", "--help"))[0]}
+        # 2 tail launches: 16 frames at batch 8
+        with launches.path("operator", {"s2d_tail": FRAMES // 8}):
+            result["submit_wall"], result["submit"], _ = await _operator_cli(
+                env, "submit", "--id", OPERATOR_JOB, "--name", "Operator clip",
+                "--uri", uri, "--wait")
+        # the Convert goes out before the record settles
+        record = orchestrator.registry.get(OPERATOR_JOB)
+        async with asyncio.timeout(30):
+            while record.state not in TERMINAL_STATES:
+                await asyncio.sleep(0.02)
+        if record.state != DONE:
+            raise AssertionError(f"operator job settled {record.state}")
+        result["status"] = (await _operator_cli(env, "status", "--url", url))[1]
+        result["show"] = json.loads((await _operator_cli(
+            env, "jobs", "show", OPERATOR_JOB, "--url", url))[1])
+        result["events"] = (await _operator_cli(
+            env, "jobs", "events", OPERATOR_JOB, "--url", url))[1]
+        result["trace"] = (await _operator_cli(
+            env, "trace", "show", result["show"]["traceId"], "--url", url))[1]
+        result["incidents"] = (await _operator_cli(
+            env, "incident", "list", "--url", url))[1]
+        marker = await store.get_object("triton-staging",
+                                        f"{OPERATOR_JOB}/original/done")
+        result["done"] = parse_done_marker(marker)["done"]
+        result["staged"] = await store.get_object(
+            "triton-staging", f"{OPERATOR_JOB}/original/"
+            + base64.b64encode(b"clip.2x.y4m").decode())
+        result["converts"] = len(broker.published(schemas.CONVERT_QUEUE))
+        result["frames_upscaled"] = metrics.frames_upscaled._value.get()
+        result["engine"] = orchestrator.stage_resources["upscale.engine"]
+    finally:
+        if runner is not None:
+            await runner.cleanup()
+        await orchestrator.shutdown(grace_seconds=30)
+        await broker.stop()
+        await origin.cleanup()
+    return result
+
+
+def phase_operator(torch, launches, work: Path, card_line: str):
+    """The operator surface at full width: a 1080p job submitted with the
+    port's CLI runs through the port's service and engine; the CLI's
+    control-API commands read it back, and the staged stream is held byte
+    for byte against the engine's own ``upscale_to``."""
+    import asyncio
+
+    t_phase = time.monotonic()
+    _tests_on_path()
+    clip = work / "operator_src.y4m"
+    with open(clip, "wb") as fh:
+        _write_y4m(fh, FRAMES, WIDTH, HEIGHT, seed=14)
+    result = asyncio.run(_drive_operator(launches, work, clip))
+    engine = result.pop("engine")
+    show, events, trace = result["show"], result["events"], result["trace"]
+    stages, hops = show.get("stageSeconds") or {}, show.get("hopLedger") or {}
+    if f"{OPERATOR_JOB} staged (Convert published)" not in result["submit"]:
+        raise AssertionError(f"submit --wait printed {result['submit']!r}")
+    if "health: idle" not in result["status"]:
+        raise AssertionError(f"status printed {result['status']!r}")
+    if (show.get("state") != "DONE" or "upscale" not in stages
+            or not {"h2d", "compute", "d2h"} <= set(hops)):
+        raise AssertionError(f"jobs show: {json.dumps(show)[:2000]}")
+    if not any(line.split("\t")[1:2] == ["upscale"]
+               and f" frames={FRAMES} " in line for line in events.splitlines()):
+        raise AssertionError(f"jobs events: {events[-2000:]}")
+    if "\tspan\tstage.upscale\t" not in trace:
+        raise AssertionError(f"trace show: {trace[-2000:]}")
+    if result["incidents"].strip():
+        raise AssertionError(f"incident list: {result['incidents']!r}")
+    if (result["done"], result["converts"], result["frames_upscaled"]) != (
+            True, 1, FRAMES):
+        raise AssertionError(f"operator job: done marker {result['done']}, "
+                             f"{result['converts']} Convert messages, "
+                             f"frames_upscaled {result['frames_upscaled']}")
+    want = io.BytesIO()
+    with open(clip, "rb") as fh:
+        frames = engine.upscale_to(fh, want)
+    if result["staged"] != want.getvalue():
+        raise AssertionError(f"operator job: the staged stream "
+                             f"({len(result['staged'])} bytes) differs from the "
+                             f"engine's upscale_to ({len(want.getvalue())} bytes)")
+    _say(f"operator: submit --wait exited 0 after {result['submit_wall']:.3f} s "
+         f"(the CLI's start to its exit, {FRAMES} frames of {WIDTH}x{HEIGHT}); "
+         f"the CLI starts in {result['startup']:.3f} s (status --help); "
+         f"status, jobs show, jobs events, trace show and incident list "
+         f"exited 0 ({card_line})")
+    _say(f"operator: {OPERATOR_JOB} DONE, done marker, 1 Convert, "
+         f"frames_upscaled_total {result['frames_upscaled']:.0f}; staged "
+         f"{len(result['staged'])} bytes byte-identical to the engine's "
+         f"upscale_to ({frames} frames); stage seconds "
+         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+         + f"; {FRAMES / stages['upscale']:.2f} frames/s through the stage; "
+         "engine hops " + ", ".join(
+             f"{h} {hops[h]['seconds']:.4f} s / {hops[h]['bytes']} B"
+             for h in ("h2d", "compute", "d2h")) + f" ({card_line})")
+    del engine
+    torch.cuda.empty_cache()
+    _say(f"operator phase: {time.monotonic() - t_phase:.1f} s")
+
+
 def _stack_planes(data: bytes, batch: int):
     """The first ``batch`` frames of a Y4M stream as stacked planes."""
     import numpy as np
@@ -1533,6 +1739,7 @@ def main() -> int:
         phase_train(torch, launches, work)                      # 12
         torch.cuda.empty_cache()
         phase_service(torch, launches, work, card_line)         # 13
+        phase_operator(torch, launches, work, card_line)        # 14
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -8,7 +8,8 @@ keeps its own copy of every framework-free module it needs.
 ``python -m downloader_tpu_torch`` with no arguments runs the staging
 service (``app.main``: download -> process -> [upscale] -> upload), as
 ``python -m downloader_tpu`` does; with a subcommand it runs the port's
-CLI (``upscale SRC DST``, ``train --data MEDIA``).
+CLI (the reference's operator commands, ``upscale SRC DST``, ``train
+--data MEDIA``).
 
 - ``app``, ``orchestrator``, ``health``, ``codec``, ``control/``,
   ``fleet/``, ``incident/``, ``mq/``, ``origins/``, ``platform/``,
@@ -16,6 +17,9 @@ CLI (``upscale SRC DST``, ``train --data MEDIA``).
   service: copies of the reference's modules, held to them by
   ``tests/test_torch_service_copies.py``; ``stages/upscale.py`` runs the
   port's engine;
+- ``cli.py`` — the operator commands (copies of the reference's
+  functions) beside the port's ``upscale``/``train``; ``soak/`` — a copy
+  of the reference's soak harness, whose rig runs the port's workers;
 - ``compute/video.py``, ``compute/transcode.py``,
   ``compute/parallel/transfer.py`` — copies of the reference's
   framework-free compute helpers;

@@ -1,6 +1,7 @@
 """``python -m downloader_tpu_torch``: with no arguments the staging
 service (``app.main``), as ``python -m downloader_tpu`` runs it; with a
-subcommand (``upscale``, ``train``) the port's CLI."""
+subcommand the port's CLI (``cli.main``: the operator commands, ``upscale``
+and ``train``)."""
 
 import sys
 

@@ -185,9 +185,11 @@ def fuzz_scenarios(scenario: dict, *, seed: int = 0,
 
 
 async def _replay_variant(entry: dict, root: str) -> dict:
-    """Run one variant on a fresh SoakRig fleet and return its breach
-    signature (imports the test-side world builder the same way the
-    bench does — the fuzzer is tooling, not a production path)."""
+    """Run one variant on a fresh SoakRig fleet of the port's workers and
+    return its breach signature (imports the port's test-side world
+    builder, ``tests/test_torch_soak.py`` — the fuzzer is tooling, not a
+    production path; the reference's ``test_soak`` would run the JAX
+    package's workers)."""
     import os
     import sys
 
@@ -196,7 +198,7 @@ async def _replay_variant(entry: dict, root: str) -> dict:
             os.path.abspath(__file__)))), "tests")
     if tests_dir not in sys.path:
         sys.path.insert(0, tests_dir)
-    from test_soak import SoakTestWorld
+    from test_torch_soak import SoakTestWorld
 
     from .compiler import scenario_profile
     from .replay import signature_from_incidents

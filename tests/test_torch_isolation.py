@@ -210,3 +210,96 @@ def test_stage_registry_resolves_to_the_port():
     assert set(resolved) == {"download", "process", "upload", "upscale"}
     for name, module in resolved.items():
         assert module == f"downloader_tpu_torch.stages.{name}"
+
+
+BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore",
+          "downloader_tpu")
+# the reference's test-side modules that import the JAX package
+REFERENCE_TEST_MODULES = ("test_soak", "miniamqp", "minitracker")
+
+_LAZY_PROBE = r"""
+import ast, asyncio, json, os, sys, tempfile, types
+fixture, banned = sys.argv[1], tuple(sys.argv[2].split(","))
+from downloader_tpu_torch.incident.compiler import (compile_bundle,
+                                                    scenario_profile)
+with open(fixture, encoding="utf-8") as fh:
+    scenario = compile_bundle(json.load(fh))
+profile = scenario_profile(scenario)
+print("PROFILE", type(profile).__module__, type(profile).__name__,
+      profile.jobs)
+
+# every world is built for real (broker, MiniS3, origins, rig); only the
+# fleet's run is left out
+from downloader_tpu_torch.soak.rig import SoakRig
+runs = []
+async def run(self, workload):
+    runs.append(type(self).__module__ + " " + type(workload).__module__)
+    return types.SimpleNamespace(ok=True)
+SoakRig.run = run
+
+from downloader_tpu_torch.incident.fuzz import _replay_variant, fuzz_scenarios
+entry = fuzz_scenarios(scenario, seed=0, variants=1)[0]
+with tempfile.TemporaryDirectory() as tmp:
+    result = asyncio.run(_replay_variant(entry, tmp))
+print("FUZZ", result["guards_ok"], runs[-1])
+
+from downloader_tpu_torch.cli import main
+rc = main(["incident", "replay", "--bundle", fixture, "--no-report"])
+print("REPLAY", rc, runs[-1])
+world = sys.modules["test_torch_soak"]
+print("WORLD", world.SoakRig.__module__, world.MiniAmqpServer.__module__,
+      world.S3ObjectStore.__module__, world.MiniS3.__module__,
+      world.RangeOrigin.__module__)
+
+# chip_smoke.py's phase 14, "operator": every import statement of its
+# functions, run as the phase runs them
+import chip_smoke
+with open(chip_smoke.__file__, encoding="utf-8") as fh:
+    tree = ast.parse(fh.read())
+names = set(chip_smoke.OPERATOR_FUNCTIONS)
+imports = [node for fn in tree.body
+           if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef))
+           and fn.name in names for node in ast.walk(fn)
+           if isinstance(node, (ast.Import, ast.ImportFrom))]
+chip_smoke._tests_on_path()
+for node in imports:
+    exec(compile(ast.Module(body=[node], type_ignores=[]), "chip_smoke.py",
+                 "exec"), dict(chip_smoke.__dict__))
+print("CHIP_SMOKE", len(imports), "imports of", sorted(names))
+hits = sorted(m for m in sys.modules
+              if any(m == b or m.startswith(b + ".") for b in banned))
+print("BANNED", hits)
+"""
+
+
+def test_lazy_paths_import_no_jax_or_reference():
+    """The paths that import lazily stay on the port, in a fresh
+    interpreter: ``scenario_profile`` returns the port's ``SoakProfile``;
+    the fuzzer's ``_replay_variant`` and the CLI's ``incident replay``
+    build the port's soak world (``tests/test_torch_soak.py``: the port's
+    rig and broker copy, with ``tests/helpers.py`` and ``tests/minis3.py``,
+    which import neither package) with only the fleet's run left out; and
+    ``chip_smoke.py``'s phase-14 imports run.  No JAX module, nothing of
+    the JAX package and none of the reference's test-side modules that
+    import it is loaded."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    fixture = os.path.join(REPO, "tests", "fixtures", "incident_bundle_v1.json")
+    proc = subprocess.run(
+        [sys.executable, "-c", _LAZY_PROBE, fixture,
+         ",".join(BANNED + REFERENCE_TEST_MODULES)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    tags = ("PROFILE", "FUZZ", "REPLAY", "WORLD", "CHIP_SMOKE", "BANNED")
+    lines = dict(line.split(" ", 1) for line in proc.stdout.splitlines()
+                 if line.split(" ", 1)[0] in tags)
+    assert lines["PROFILE"] == "downloader_tpu_torch.soak.workload SoakProfile 18"
+    world = "downloader_tpu_torch.soak.rig downloader_tpu_torch.soak.workload"
+    assert lines["FUZZ"] == "True " + world
+    # the empty run breaches nothing, so the replay diverges (exit 1)
+    assert lines["REPLAY"] == "1 " + world
+    assert "# run 1/1: DIVERGED" in proc.stderr
+    assert lines["WORLD"] == ("downloader_tpu_torch.soak.rig test_torch_miniamqp "
+                              "downloader_tpu_torch.store.s3 minis3 helpers")
+    assert int(lines["CHIP_SMOKE"].split()[0]) > 0
+    assert lines["BANNED"] == "[]", lines["BANNED"]

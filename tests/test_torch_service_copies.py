@@ -1,15 +1,24 @@
 """The port's copy of the service is the reference's service.
 
-Every module the port copies from ``downloader_tpu`` must have the
-reference's syntax tree once docstrings are dropped and the package name
-is mapped (``downloader_tpu`` -> ``downloader_tpu_torch`` in imports and
-string constants); comments may differ.  So the reference's own service
-tests vouch for the copies, and the port's suite mirrors only the
+Every module the port copies from ``downloader_tpu`` (the service and
+the soak harness, ``soak/``) must have the reference's syntax tree once
+docstrings are dropped and the package name is mapped
+(``downloader_tpu`` -> ``downloader_tpu_torch`` in imports and string
+constants); comments may differ.  So the reference's own service and
+soak tests vouch for the copies, and the port's suite mirrors only the
 modules listed in :data:`DIFFERS`, each beside its reason and its mirror
 tests.  The generated ``schemas/downloader_pb2.py`` is compared byte for
 byte (protobuf registers the file in one process-wide descriptor pool,
 where only an identical copy can sit beside the reference's), and its
 ``.proto`` line for line outside its ``//`` comments.
+
+``cli.py`` is held function by function: every top-level function of
+the reference's has a counterpart of the same tree in the port's, but
+those in :data:`CLI_DIFFERS` (the compute commands and the incident
+replay's world).  The port's test-side world is held too: its broker,
+``tests/test_torch_miniamqp.py``, is ``tests/miniamqp.py`` on the port's
+wire codec plus its own tests, and every definition of
+``tests/test_torch_soak.py`` is the one of ``tests/test_soak.py``.
 """
 
 import ast
@@ -21,11 +30,12 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF = os.path.join(REPO, "downloader_tpu")
 PORT = os.path.join(REPO, "downloader_tpu_torch")
+TESTS = os.path.join(REPO, "tests")
 
-# what the port does not copy: the JAX compute plane (ported by hand),
-# the soak harness and graftlint (outside the service), and the operator
-# CLI (the port's cli.py is its own; the operator commands come later)
-NOT_COPIED_DIRS = ("compute", "soak", "analysis")
+# what the port does not copy whole: the JAX compute plane (ported by
+# hand), graftlint (it lints the reference's trees; the copy check holds
+# the port), and cli.py (held function by function below)
+NOT_COPIED_DIRS = ("compute", "analysis")
 NOT_COPIED_FILES = ("cli.py",)
 
 # the reference's framework-free compute helpers the port copies
@@ -48,6 +58,33 @@ DIFFERS = {
         "runs the port's FrameUpscaler: the device knob, use_mesh and donate "
         "read but not passed, the engine built inside the compute seam",
         "tests/test_torch_stage.py"),
+    "incident/fuzz.py": (
+        "_replay_variant builds the port's soak world (tests/test_torch_soak.py), "
+        "never the reference's test_soak, whose rig runs the JAX package's "
+        "workers",
+        "tests/test_torch_isolation.py::test_lazy_paths_import_no_jax_or_reference"),
+}
+
+# top-level functions of the port's cli.py that differ from the
+# reference's, each with its reason and the tests that hold it instead
+CLI_DIFFERS = {
+    "_build_parser": (
+        "the upscale/train subparsers: the GPU's help texts and --device "
+        "(compared with those statements left out); the program's name",
+        "tests/test_torch_cli.py, tests/test_torch_pipeline.py::"
+        "test_cli_upscale_on_cpu_matches_engine"),
+    "_upscale": (
+        "the port's FrameUpscaler on --device; no optional-extra fallback",
+        "tests/test_torch_pipeline.py::test_cli_upscale_on_cpu_matches_engine, "
+        "tests/test_torch_pipeline.py::test_cli_decode_encode_round_trip"),
+    "_train": (
+        "the port's trainer on --device",
+        "tests/test_torch_trainer.py::test_cli_train_and_upscale"),
+    "_incident_replay": (
+        "imports the port's SoakTestWorld (tests/test_torch_soak.py), never "
+        "the reference's test_soak",
+        "tests/test_torch_isolation.py::test_lazy_paths_import_no_jax_or_reference, "
+        "tests/test_torch_cli.py::test_incident_replay_compile_only"),
 }
 
 SERVICE = sorted(
@@ -70,6 +107,10 @@ def _rename(text: str) -> str:
 
 def _tree(path: str, reference: bool) -> str:
     """The module's AST without docstrings, the reference's renamed."""
+    return ast.dump(_parsed(path, reference))
+
+
+def _parsed(path: str, reference: bool) -> ast.Module:
     with open(path, encoding="utf-8") as fh:
         tree = ast.parse(fh.read())
     for node in ast.walk(tree):
@@ -88,7 +129,14 @@ def _tree(path: str, reference: bool) -> str:
             node.module = _rename(node.module)
         elif isinstance(node, ast.alias):
             node.name = _rename(node.name)
-    return ast.dump(tree)
+    return tree
+
+
+def _defs(path: str, reference: bool) -> dict:
+    """Top-level functions and classes by name, each as its tree."""
+    return {node.name: node for node in _parsed(path, reference).body
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                 ast.ClassDef))}
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -130,6 +178,86 @@ def test_every_service_module_is_copied_or_listed():
         for mirror in mirrors.split(", "):
             path = mirror.split("::")[0]
             assert os.path.exists(os.path.join(REPO, path)), mirror
+
+
+REF_CLI = _defs(os.path.join(REF, "cli.py"), reference=True)
+PORT_CLI = _defs(os.path.join(PORT, "cli.py"), reference=False)
+
+
+@pytest.mark.parametrize("name", sorted(set(REF_CLI) - set(CLI_DIFFERS)))
+def test_cli_function_matches_reference(name):
+    assert name in PORT_CLI, f"cli.py: {name} is not ported"
+    assert ast.dump(PORT_CLI[name]) == ast.dump(REF_CLI[name]), (
+        f"downloader_tpu_torch/cli.py: {name} differs from the reference "
+        "beyond docstrings and the package name; list it in CLI_DIFFERS "
+        "with its reason and a mirror test, or copy it again")
+
+
+def test_cli_differs_are_listed_and_real():
+    """The port's CLI defines exactly the reference's functions, and each
+    listed exception really differs and names existing mirror tests."""
+    assert set(PORT_CLI) == set(REF_CLI)
+    for name, (reason, mirrors) in CLI_DIFFERS.items():
+        assert reason and ast.dump(PORT_CLI[name]) != ast.dump(REF_CLI[name])
+        for mirror in mirrors.split(", "):
+            assert os.path.exists(os.path.join(REPO, mirror.split("::")[0]))
+
+
+def _parser_body(fn: ast.FunctionDef) -> list:
+    """``_build_parser``'s statements without the upscale/train
+    subparsers and with the program's name left out."""
+    body = []
+    for stmt in fn.body:
+        names = {node.id for node in ast.walk(stmt)
+                 if isinstance(node, ast.Name)}
+        if names & {"upscale", "train"}:
+            continue
+        for node in ast.walk(stmt):
+            if isinstance(node, ast.keyword) and node.arg == "prog":
+                node.value = ast.Constant(None)
+        body.append(ast.dump(stmt))
+    return body
+
+
+def test_cli_parser_matches_reference_but_upscale_and_train():
+    """Every operator command's parser is the reference's: the port's
+    ``_build_parser`` differs only in the upscale/train subparsers."""
+    port, ref = PORT_CLI["_build_parser"], REF_CLI["_build_parser"]
+    assert _parser_body(port) == _parser_body(ref)
+    commands = {stmt.value.args[0].value for stmt in port.body
+                if isinstance(stmt, ast.Assign)
+                and isinstance(stmt.value, ast.Call)
+                and getattr(stmt.value.func, "attr", None) == "add_parser"
+                and isinstance(stmt.value.func.value, ast.Name)
+                and stmt.value.func.value.id == "sub"}
+    assert commands == {
+        "submit", "mktorrent", "magnet", "scrape", "status", "jobs", "fleet",
+        "trace", "tenants", "incident", "debug", "scrub", "watch", "upscale",
+        "train"}
+
+
+
+def test_port_broker_is_the_reference_broker():
+    """``tests/test_torch_miniamqp.py`` is ``tests/miniamqp.py`` on the
+    port's wire codec, followed by its own tests only."""
+    ref = _parsed(os.path.join(TESTS, "miniamqp.py"), reference=True).body
+    port = _parsed(os.path.join(TESTS, "test_torch_miniamqp.py"),
+                   reference=False).body
+    assert [ast.dump(node) for node in port[:len(ref)]] == [
+        ast.dump(node) for node in ref]
+    extra = port[len(ref):]
+    assert extra and all(isinstance(node, ast.FunctionDef)
+                         and node.name.startswith("test_") for node in extra)
+
+
+def test_port_soak_world_is_the_reference_world():
+    """Every definition of ``tests/test_torch_soak.py`` (the origins, the
+    world, the smoke) is the one of ``tests/test_soak.py`` of that name."""
+    ref = _defs(os.path.join(TESTS, "test_soak.py"), reference=True)
+    port = _defs(os.path.join(TESTS, "test_torch_soak.py"), reference=False)
+    assert {"SoakTestWorld", "test_soak_smoke"} <= set(port)
+    for name, node in port.items():
+        assert ast.dump(node) == ast.dump(ref[name]), name
 
 
 def test_listed_modules_really_differ():
