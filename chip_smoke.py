@@ -107,7 +107,22 @@ Phases, each failing the run (non-zero exit) on any error:
    --help``) and the job's stage seconds and hops are printed beside the
    card line.
 
-Every path of phases 5-10, 12, 13 and 14 runs with every kernel's launch counter set to
+15. the multi-device path: phase 5's 16-frame 1080p 4:2:0 clip through
+   ``FrameUpscaler.upscale_to`` on an engine over every visible card and
+   on one over the first card listed twice (batch 16: two shards of 8),
+   each byte-identical to the one-card engine's stream, the tail
+   launched shards x dispatches times, ``compile_decisions`` ``pjit`` on
+   the twice-listed engine; frames/s of the one-card and the twice-listed
+   engine on a 128-frame stream in turns, beside phase 11's; then a
+   one-rank NCCL group in this process where ``compile_train_step`` on a
+   1x1 plan takes 3 steps at batch 8, crop 64, against the plain step
+   from the same seed (losses within ``MESH_LOSS_RTOL``), with ms/step of
+   each; ``dryrun_multichip`` over the visible cards (its ok line; its
+   group of one process per card is spawned through ``run_group``); and
+   ``measure_overlap`` on the card's engine at 720p, best of 3 against
+   the reference's alarm (overlap >= 0.5, pipelined <= 0.85 x serial).
+
+Every path of phases 5-10, 12, 13, 14 and 15 runs with every kernel's launch counter set to
 0 just before it and read just after; each count must be the one the
 path implies (e.g. 3 standalone quantizes per generic-tail batch, 0 head
 kernels on the engine's paths).
@@ -887,8 +902,12 @@ def _traced_core(torch, engine, spans):
     return traced
 
 
-def phase_throughput(torch, engine):
+def phase_throughput(torch, engine) -> dict:
+    """Frames/s end to end per resolution (returned), with the card's
+    computing share, the stage split and the host's waits."""
     from downloader_tpu_torch.compute.pipeline import upscaler_flops_per_frame
+
+    rates = {}
 
     for height, width in ((720, 1280), (1080, 1920), (2160, 3840)):
         batch = engine.batch_for(height, width)
@@ -947,11 +966,13 @@ def phase_throughput(torch, engine):
              f"compute alone {batch_ms:.3f} ms/batch ({tflop:.2f} TFLOP of "
              f"plain-head convs on the untiled frames); peak memory "
              f"{peak / 2**30:.2f} GiB")
+        rates[key] = RUNS * frames / sum(walls)
         if stages:
             _say(f"{key} stages (ms/batch): " + ", ".join(
                 f"{k} {v:.3f}" for k, v in stages.items()))
         _say(f"{key} host waits over {RUNS} runs (s): " + ", ".join(
             f"{k} {v:.4f}" for k, v in hops.items()))
+    return rates
 
 
 TRAIN_FRAMES, TRAIN_WIDTH, TRAIN_HEIGHT = 32, 1280, 720
@@ -1154,10 +1175,10 @@ def _train_end_to_end(torch, paths, steps: int = 30):
     settings = trainer.TrainerSettings(steps=steps, log_every=10)
     trainer.train(paths, trainer.TrainerSettings(steps=3))  # warm-up
     spans = []
-    make = trainer.make_train_step
+    make = trainer.compile_train_step
 
     def traced_make(*args, **kwargs):
-        step, init = make(*args, **kwargs)
+        step, init, decision = make(*args, **kwargs)
 
         def traced(state, lr, hr):
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -1167,10 +1188,10 @@ def _train_end_to_end(torch, paths, steps: int = 30):
             spans.append((start, end))
             return loss
 
-        return traced, init
+        return traced, init, decision
 
     lines = []
-    trainer.make_train_step = traced_make
+    trainer.compile_train_step = traced_make
     try:
         torch.cuda.synchronize()
         t0 = time.monotonic()
@@ -1178,7 +1199,7 @@ def _train_end_to_end(torch, paths, steps: int = 30):
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
     finally:
-        trainer.make_train_step = make
+        trainer.compile_train_step = make
     busy = sum(s.elapsed_time(e) for s, e in spans) / 1e3
     for line in lines:
         _say(f"train() on the clip: {line}")
@@ -1662,6 +1683,165 @@ def phase_operator(torch, launches, work: Path, card_line: str):
     _say(f"operator phase: {time.monotonic() - t_phase:.1f} s")
 
 
+# the (data x model) step on a one-rank NCCL group against the plain
+# step: the same convs and Adam, with collectives over one rank between
+MESH_LOSS_RTOL = 1e-3
+MESH_STEPS, MESH_BATCH, MESH_CROP = 3, 8, 64
+MESH_STREAM = 128  # frames of phase 15's frames/s stream
+
+
+def _mesh_train_steps(steps: int, batch: int, crop: int, seed: int) -> dict:
+    """On the current one-rank NCCL group: ``steps`` steps of the mesh
+    step on a 1x1 plan and of the plain step, from one seeded init, on
+    the same seeded batches; then ms per step of each, in turns."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from downloader_tpu_torch.compute.models.upscaler import UpscalerConfig
+    from downloader_tpu_torch.compute.parallel.mesh import make_mesh, shard_batch
+    from downloader_tpu_torch.compute.train import compile_train_step, make_train_step
+    from downloader_tpu_torch.compute.trainer import box_downsample
+
+    plan = make_mesh(model_axis=1)
+    step, init_state, decision = compile_train_step(UpscalerConfig(), mesh=plan)
+    plain_step, plain_init = make_train_step(UpscalerConfig())
+    state, plain = init_state(seed), plain_init(seed)
+    rng = np.random.default_rng(seed)
+    batches = []
+    for _ in range(steps):
+        hr = rng.random((batch, crop, crop, 3), dtype=np.float32)
+        batches.append((box_downsample(hr, 2).astype(np.float32), hr))
+    mesh_losses, plain_losses = [], []
+    for lr, hr in batches:
+        mesh_losses.append(float(step(state, *shard_batch(plan, (lr, hr)))))
+        plain_losses.append(float(plain_step(
+            plain, torch.from_numpy(lr).cuda(), torch.from_numpy(hr).cuda())))
+    lr, hr = (torch.from_numpy(a).cuda() for a in batches[0])
+    ms = {"mesh": [], "plain": []}
+    for name in ("plain", "mesh", "mesh", "plain"):
+        fn, st = (step, state) if name == "mesh" else (plain_step, plain)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(10):
+            fn(st, lr, hr)
+        torch.cuda.synchronize()
+        ms[name].append((time.monotonic() - t0) * 100.0)
+    return {"backend": dist.get_backend(), "world": dist.get_world_size(),
+            "plan": plan.shape, "decision": decision.strategy,
+            "mesh": mesh_losses, "plain": plain_losses,
+            "mesh_ms": min(ms["mesh"]), "plain_ms": min(ms["plain"])}
+
+
+def phase_mesh(torch, launches, work: Path, fps: dict):
+    """The multi-device path: the engine over every visible card and over
+    the first card listed twice, byte for byte against the one-card
+    engine; the (data x model) step on a one-rank NCCL group against the
+    plain step; ``dryrun_multichip``; the overlap probe's alarm."""
+    from downloader_tpu_torch.compute.overlap_probe import measure_overlap
+    from downloader_tpu_torch.compute.parallel.group import COLLECTIVE_TIMEOUT
+    from downloader_tpu_torch.compute.pipeline import FrameUpscaler
+    from downloader_tpu_torch.graft_entry import dryrun_multichip
+
+    import numpy as np
+
+    t_phase = time.monotonic()
+    cards = torch.cuda.device_count()
+    data = (work / "src.y4m").read_bytes()  # phase 5's 16-frame 1080p clip
+
+    def stream(engine, src: bytes) -> bytes:
+        out = io.BytesIO()
+        if engine.upscale_to(io.BytesIO(src), out) != FRAMES:
+            raise AssertionError(f"upscale_to wrote another count than {FRAMES}")
+        return out.getvalue()
+
+    single = FrameUpscaler(use_mesh=False)
+    want = stream(single, data)
+    every = FrameUpscaler()
+    twice = FrameUpscaler(batch=16, devices=["cuda:0", "cuda:0"])
+    if every.n_devices != cards or twice.n_devices != 2:
+        raise AssertionError(f"engines over {every.n_devices} and "
+                             f"{twice.n_devices} devices")
+    for name, engine in (("mesh_every_card", every), ("mesh_card_twice", twice)):
+        dispatches = -(-FRAMES // engine.batch_for(HEIGHT, WIDTH))
+        with launches.path(name, {"s2d_tail": engine.n_devices * dispatches}):
+            got = stream(engine, data)
+        if got != want:
+            diff = np.frombuffer(got, np.uint8) != np.frombuffer(want, np.uint8)
+            raise AssertionError(f"{name}: {int(diff.sum())} bytes differ from "
+                                 "the one-card engine's stream")
+        decision = engine.compile_decisions[(2, 2)]
+        strategy = "pjit" if engine.n_devices > 1 else "jit"
+        if decision.strategy != strategy:
+            raise AssertionError(f"{name}: decision {decision}, want {strategy}")
+        _say(f"{name}: {engine.n_devices} devices x {dispatches} dispatches of "
+             f"{engine.batch_for(HEIGHT, WIDTH)} frames, stream byte-identical "
+             f"to the one-card engine's ({len(got)} bytes), decision "
+             f"{decision.strategy} ({decision.reason})")
+
+    longer = io.BytesIO()
+    _write_y4m(longer, MESH_STREAM, WIDTH, HEIGHT, seed=5, distinct=16)
+    longer = longer.getvalue()
+    walls = {"one card": [], "card twice": []}
+    for name in ("one card", "card twice", "card twice", "one card"):
+        engine = single if name == "one card" else twice
+        t0 = time.monotonic()
+        engine.upscale_to(io.BytesIO(longer), _Sink())
+        walls[name].append(time.monotonic() - t0)
+    _say(f"1080p frames/s through upscale_to, {MESH_STREAM} frames, best of 2 "
+         "in turns: " + ", ".join(f"{k} {MESH_STREAM / min(v):.2f}"
+                                  for k, v in walls.items())
+         + f"; phase 11's one-card engine: {fps.get('1080p', float('nan')):.2f}")
+    del single, every, twice
+    torch.cuda.empty_cache()
+
+    # the mesh step in this process, on a one-rank NCCL group (the
+    # spawned-group path runs in dryrun_multichip below)
+    import torch.distributed as dist
+
+    t0 = time.monotonic()
+    store = dist.TCPStore("127.0.0.1", 0, 1, is_master=True,
+                          timeout=COLLECTIVE_TIMEOUT)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            timeout=COLLECTIVE_TIMEOUT)
+    try:
+        res = _mesh_train_steps(MESH_STEPS, MESH_BATCH, MESH_CROP, 0)
+    finally:
+        dist.destroy_process_group()
+    worst = max(abs(a - b) / abs(b) for a, b in zip(res["mesh"], res["plain"]))
+    _say(f"one-rank {res['backend']} group (world {res['world']}), plan "
+         f"{res['plan']}, decision {res['decision']}: {MESH_STEPS} steps at batch "
+         f"{MESH_BATCH} crop {MESH_CROP}, mesh losses "
+         f"{', '.join(f'{x:.6f}' for x in res['mesh'])} vs plain "
+         f"{', '.join(f'{x:.6f}' for x in res['plain'])} (worst rel {worst:.2e}); "
+         f"{res['mesh_ms']:.3f} ms/step mesh vs {res['plain_ms']:.3f} plain "
+         f"({time.monotonic() - t0:.1f} s with the group's start)")
+    if res["backend"] != "nccl" or worst > MESH_LOSS_RTOL:
+        raise AssertionError(f"mesh step vs plain: {res}")
+
+    t0 = time.monotonic()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        line = dryrun_multichip(cards)
+    if not line.startswith("dryrun_multichip ok: "):
+        raise AssertionError(f"dryrun_multichip printed {out.getvalue()!r}")
+    _say(f"{line} ({time.monotonic() - t0:.1f} s with process start)")
+
+    engine = FrameUpscaler()
+    last = None
+    for attempt in range(3):
+        last = measure_overlap(engine, height=720, width=1280)
+        _say(f"overlap probe at 720p, attempt {attempt + 1}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in last.items()))
+        if last["overlap"] >= 0.5 and last["pipelined_s"] <= 0.85 * last["serial_s"]:
+            break
+    else:
+        raise AssertionError(f"overlap probe: {last}")
+    del engine
+    torch.cuda.empty_cache()
+    _say(f"mesh phase: {time.monotonic() - t_phase:.1f} s")
+
+
 def _stack_planes(data: bytes, batch: int):
     """The first ``batch`` frames of a Y4M stream as stacked planes."""
     import numpy as np
@@ -1733,13 +1913,14 @@ def main() -> int:
         phase_scale1_s2d(torch, launches, work)                 # 9b
         phase_infer(torch, launches)                            # 10
         torch.cuda.empty_cache()
-        phase_throughput(torch, engine)                         # 11
+        fps = phase_throughput(torch, engine)                   # 11
         del engine
         torch.cuda.empty_cache()
         phase_train(torch, launches, work)                      # 12
         torch.cuda.empty_cache()
         phase_service(torch, launches, work, card_line)         # 13
         phase_operator(torch, launches, work, card_line)        # 14
+        phase_mesh(torch, launches, work, fps)                  # 15
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -21,16 +21,22 @@ CLI (the reference's operator commands, ``upscale SRC DST``, ``train
   functions) beside the port's ``upscale``/``train``; ``soak/`` — a copy
   of the reference's soak harness, whose rig runs the port's workers;
 - ``compute/video.py``, ``compute/transcode.py``,
-  ``compute/parallel/transfer.py`` — copies of the reference's
-  framework-free compute helpers;
+  ``compute/parallel/transfer.py``, ``compute/overlap_probe.py`` —
+  copies of the reference's framework-free compute helpers;
+- ``compute/parallel/`` — the (data x model) mesh plan, the partition
+  rules, the pjit/shard_map chooser and process groups (``group.py``);
+  ``graft_entry.py`` — the entry points of ``__graft_entry__.py`` (``entry``,
+  ``dryrun_multichip``);
 - ``compute/models/``, ``compute/ops/``, ``compute/weights.py`` — the
   model, its ops and the flax <-> torch weight bridge;
 - ``compute/csrc/`` + ``compute/kernels/`` — the hand-written CUDA
   kernels (``sm_90a``) and their ``nvcc``/``ctypes`` loader;
 - ``compute/pipeline.py`` — the batched frame engine, every branch and
-  spatial tiling; ``compute/infer.py`` — the RGB inference path;
+  spatial tiling, data-parallel over every visible card;
+  ``compute/infer.py`` — the RGB inference path;
 - ``compute/train.py``, ``compute/trainer.py``, ``compute/checkpoint.py``
-  — the train step, the training loop and the port's own checkpoints;
+  — the train step (on one device, or (data x model) in a process
+  group), the training loop and the port's own checkpoints;
 - ``scripts/head_spike.py`` — the s2d-head kernel against the engine's
   cuDNN head (``python -m downloader_tpu_torch.scripts.head_spike``).
 

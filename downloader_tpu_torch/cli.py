@@ -42,7 +42,10 @@ decode front-end and encode back-end around the engine) with the port's
 ``--checkpoint-dir``'s latest step or, without it, the seeded random
 init.  ``train`` fits the upscaler on Y4M media and saves the port's own
 checkpoints (:mod:`.compute.checkpoint`), resuming from the latest one.
-Both run on the GPU unless ``--device cpu`` is given.
+Both run on the GPU unless ``--device cpu`` is given, and adopt every
+visible card: ``upscale`` splits each batch over them in one process,
+``train`` runs one worker per card in a process group (NCCL), with
+``--model-axis`` the tensor-parallel width of its (data x model) mesh.
 """
 
 from __future__ import annotations
@@ -431,9 +434,9 @@ def _build_parser() -> argparse.ArgumentParser:
                        help="dir to save to / resume from")
     train.add_argument("--save-every", type=int, default=100)
     train.add_argument("--model-axis", type=int, default=1,
-                       help="tensor-parallel axis size; read only with more "
-                            "than one visible GPU, which waits for the "
-                            "multi-GPU slice")
+                       help="tensor-parallel axis size of the mesh over "
+                            "every visible GPU (one worker per card); read "
+                            "only with more than one")
     train.add_argument("--seed", type=int, default=0)
     train.add_argument("--scale", type=int, default=2,
                        help="upscale factor (match the upscale engine's)")

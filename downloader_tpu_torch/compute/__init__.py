@@ -7,7 +7,10 @@
                   tensor and run their plain PyTorch versions on a CPU one
 - ``kernels/``  — builds ``csrc/*.cu`` with ``nvcc`` and binds them with
                   ``ctypes``
-- ``pipeline.py`` — the batched frame engine the ``upscale`` CLI drives
+- ``parallel/``  — mesh plans, partition rules, the pjit/shard_map
+                  chooser, process groups, transfers and hop billing
+- ``pipeline.py`` — the batched frame engine the ``upscale`` CLI drives,
+                  data-parallel over its devices
 - ``train.py``, ``trainer.py``, ``checkpoint.py`` — the train step, the
                   training loop the ``train`` CLI drives, and the
                   checkpoints both commands share

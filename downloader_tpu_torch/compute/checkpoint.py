@@ -18,6 +18,13 @@ orbax's contract as the JAX package uses it:
   raises ``FileNotFoundError`` when there is no checkpoint and
   ``ValueError`` when the saved params do not fit the model's geometry.
 
+On a mesh (a :class:`~.parallel.mesh.MeshPlan` in a process group)
+:func:`save_state` gathers every sharded tensor whole over its axis and
+rank 0 writes the same format, and :func:`restore_state` with a ``plan``
+gives each rank its block: a mesh state and a single-device state are
+interchangeable, and a state saved on one mesh shape restores onto
+another (the reshape a resize performs).
+
 The JAX package's orbax steps cannot be read here (that needs orbax and
 tensorstore): a directory holding them raises a ``ValueError`` that
 names the format, and is never taken for an empty one.  A model trained
@@ -30,9 +37,11 @@ from __future__ import annotations
 import os
 import shutil
 import tempfile
-from typing import Any, List, Mapping, Optional, Tuple
+from typing import Any, Callable, List, Mapping, Optional, Tuple
 
 import torch
+
+from .parallel.mesh import MeshPlan, gather_global, make_global
 
 FORMAT = "downloader_tpu_torch/checkpoint/1"
 MAX_TO_KEEP = 3
@@ -85,12 +94,44 @@ def _fsync_dir(path: str) -> None:
         os.close(fd)
 
 
+def _per_param(opt_state: Mapping[str, Any], names: List[str],
+               fn: Callable[[str, torch.Tensor], torch.Tensor]) -> dict:
+    """``opt_state`` (an optimizer's state dict, whose state is keyed by
+    parameter index) with ``fn(param name, tensor)`` applied to every
+    per-parameter tensor of rank > 0 (Adam's moments); step counts pass
+    as they are."""
+    state = {
+        index: {k: fn(names[int(index)], v)
+                if isinstance(v, torch.Tensor) and v.ndim > 0 else v
+                for k, v in entry.items()}
+        for index, entry in opt_state["state"].items()}
+    return {**opt_state, "state": state}
+
+
 def save_state(directory: str, step: int, params: Mapping[str, torch.Tensor],
-               opt_state: Mapping[str, Any]) -> bool:
+               opt_state: Mapping[str, Any],
+               plan: Optional[MeshPlan] = None) -> bool:
     """Write checkpoint ``step`` under ``directory`` (keeps the last
     :data:`MAX_TO_KEEP`).  ``params`` is the model's state dict,
     ``opt_state`` the optimizer's.  Returns False, writing nothing, when
-    ``step`` is not above the latest saved step, as orbax does."""
+    ``step`` is not above the latest saved step, as orbax does.
+
+    With a ``plan`` in a process group every rank calls this: each
+    sharded tensor is gathered whole over its axis and rank 0 writes;
+    every rank returns rank 0's answer."""
+    if plan is not None and plan.mesh is not None:
+        import torch.distributed as dist
+
+        names = list(params)
+        params = {n: gather_global(plan, t, plan.param_spec(n, t))
+                  for n, t in params.items()}
+        opt_state = _per_param(opt_state, names, lambda n, t: gather_global(
+            plan, t, plan.param_spec(n, t)))
+        written = [None]
+        if dist.get_rank() == 0:
+            written[0] = save_state(directory, step, params, opt_state)
+        dist.broadcast_object_list(written, src=0)
+        return bool(written[0])
     directory = os.path.abspath(directory)
     os.makedirs(directory, exist_ok=True)
     steps = _steps(directory)
@@ -121,15 +162,18 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def restore_state(directory: str, params_like: Mapping[str, torch.Tensor],
-                  step: Optional[int] = None
+                  step: Optional[int] = None, plan: Optional[MeshPlan] = None
                   ) -> Tuple[int, dict, dict]:
     """Restore ``(step, params, opt_state)`` (the latest step unless
     ``step`` is given), tensors on the CPU.
 
-    ``params_like`` is a state dict of the model to load into (e.g. a
-    fresh one): the saved params must have its keys, shapes and dtypes,
-    else this raises ``ValueError`` (orbax raises on a shape mismatch
-    too).  Load ``opt_state`` with :func:`load_optimizer_state`."""
+    ``params_like`` is a state dict of the whole model (e.g. a fresh
+    one): the saved params must have its keys, shapes and dtypes, else
+    this raises ``ValueError`` (orbax raises on a shape mismatch too).
+    Load ``opt_state`` with :func:`load_optimizer_state`.  With a
+    ``plan`` the params and Adam's moments come back as this process's
+    blocks on its device (:func:`~.parallel.mesh.shard_params`), on
+    whatever mesh shape the state was saved from."""
     directory = os.path.abspath(directory)
     steps = _steps(directory)
     if step is None:
@@ -153,7 +197,14 @@ def restore_state(directory: str, params_like: Mapping[str, torch.Tensor],
             f"{path} does not fit the model's geometry: "
             + ", ".join(f"{k} saved {_describe(params.get(k))}, model "
                         f"{_describe(params_like.get(k))}" for k in wrong))
-    return step, params, blob["opt_state"]
+    opt_state = blob["opt_state"]
+    if plan is not None:
+        names = list(params_like)
+        params = {n: make_global(params[n], plan, plan.param_spec(n, params[n]))
+                  for n in names}
+        opt_state = _per_param(opt_state, names, lambda n, t: make_global(
+            t, plan, plan.param_spec(n, t)))
+    return step, params, opt_state
 
 
 def _describe(t: Optional[torch.Tensor]) -> str:

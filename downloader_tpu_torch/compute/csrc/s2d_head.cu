@@ -502,18 +502,19 @@ int launch(const void* feats, const void* w16, const void* bias4, void* out, int
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)kSmemBytes);
     if (err != cudaSuccess) return (int)err;
-    // persistent: as many blocks as are resident at once (a cached answer)
-    static int max_blocks = 0;
-    if (max_blocks == 0) {
-        int device = 0, sms = 0, per_sm = 0;
-        cudaGetDevice(&device);
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, s2d_head_kernel, kThreads,
-                                                            kSmemBytes);
-        if (err != cudaSuccess) return (int)err;
-        if (per_sm <= 0) return (int)cudaErrorInvalidConfiguration;
-        max_blocks = sms * per_sm;
-    }
+    // persistent: as many blocks as are resident at once on the current
+    // device (the caller makes the operands' device current), asked on
+    // every call: a cached answer would belong to one device
+    int device = 0, sms = 0, per_sm = 0;
+    err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, s2d_head_kernel, kThreads,
+                                                        kSmemBytes);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm <= 0) return (int)cudaErrorInvalidConfiguration;
+    const int max_blocks = sms * per_sm;
     const int tiles = Tiles(batch, h2, w2).count;
     s2d_head_kernel<<<tiles < max_blocks ? tiles : max_blocks, kThreads, kSmemBytes, stream>>>(
         feats_map, w_map, (const unsigned short*)bias4, out, batch, height, width, out_f32);

@@ -7,6 +7,15 @@ dispatch point for it, :func:`~.ops.pixel_shuffle.quantize_u8`: on the
 card it launches ``csrc/quantize_u8.cu`` on any shape.  (The reference
 routes a shape to its Pallas kernel only when the last dim is a multiple
 of 128, which 3 RGB channels never are; the function is the same.)
+
+With a ``mesh`` (a :class:`~.parallel.mesh.MeshPlan`) the batch is
+data-parallel over the plan's ``data`` devices and the params are
+replicated, through the chooser's shard_map route
+(:func:`~.parallel.chooser.compile_step`): the batch is zero-padded to a
+multiple of the data axis, each shard runs on its device and the rows
+are joined (in a process group, all-gathered, so every rank returns
+the whole).  Batch entries are independent, so the output is
+byte-identical to the one-device path's.
 """
 
 from __future__ import annotations
@@ -21,6 +30,8 @@ import torch
 from .. import resolve_device
 from .models.upscaler import Upscaler, UpscalerConfig
 from .ops.pixel_shuffle import quantize_u8
+from .parallel.chooser import compile_step
+from .parallel.partition import Spec
 from .pipeline import no_tf32
 
 
@@ -31,6 +42,16 @@ def _model(config: UpscalerConfig,
     lock that serialises the calls that swap their params into it."""
     return (Upscaler(config).to(device).eval().requires_grad_(False),
             threading.Lock())
+
+
+def _forward(config: UpscalerConfig, params: Mapping[str, torch.Tensor],
+             frames: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    model, lock = _model(config, dev)
+    weights = {k: v.to(dev) for k, v in params.items()}
+    x = frames.to(dev).float() / 255.0
+    with lock, no_tf32():
+        out = torch.func.functional_call(model, weights, (x,))
+    return quantize_u8((out.float() * 255.0).contiguous())
 
 
 def make_infer_fn(config: UpscalerConfig = UpscalerConfig(), device=None,
@@ -47,28 +68,50 @@ def make_infer_fn(config: UpscalerConfig = UpscalerConfig(), device=None,
     caller's params into the shared module for its length.
 
     ``device`` defaults to CUDA and raises without a GPU; pass ``"cpu"``
-    for the plain PyTorch path.  A ``mesh`` (the reference's data-parallel
-    route) waits for the multi-GPU slice of the port and raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_infer_fn(mesh=...): data-parallel inference over several "
-            "GPUs is not ported yet")
-    dev = resolve_device(device)
-    model, lock = _model(config, dev)
+    for the plain PyTorch path.  ``mesh`` (a plan, in place of
+    ``device``) splits the batch over the plan's data devices (module
+    docstring); the result lies on the plan's first device, or in a
+    process group on this rank's."""
+    if mesh is not None and device is not None:
+        raise ValueError("pass device or mesh, not both")
 
-    @torch.inference_mode()
-    def infer(params: Mapping[str, torch.Tensor], frames_u8) -> torch.Tensor:
+    def check(frames_u8) -> torch.Tensor:
         if isinstance(frames_u8, np.ndarray):
             frames_u8 = torch.from_numpy(np.ascontiguousarray(frames_u8))
         if frames_u8.dtype != torch.uint8:
             raise TypeError(f"infer takes uint8 frames, got {frames_u8.dtype}")
-        weights = {k: v.to(dev) for k, v in params.items()}
-        x = frames_u8.to(dev).float() / 255.0
-        with lock, no_tf32():
-            out = torch.func.functional_call(model, weights, (x,))
-        return quantize_u8((out.float() * 255.0).contiguous())
+        return frames_u8
 
-    return infer
+    if mesh is None:
+        dev = resolve_device(device)
+        _model(config, dev)  # build the module now, as before the first call
+
+        @torch.inference_mode()
+        def infer(params: Mapping[str, torch.Tensor], frames_u8) -> torch.Tensor:
+            return _forward(config, params, check(frames_u8), dev)
+
+        return infer
+
+    def shard(params, frames):
+        return _forward(config, params, frames, frames.device)
+
+    data = mesh.shape["data"]
+
+    @torch.inference_mode()
+    def infer_on_mesh(params: Mapping[str, torch.Tensor], frames_u8) -> torch.Tensor:
+        frames = check(frames_u8)
+        n = frames.shape[0]
+        pad = -n % data
+        if pad:
+            frames = torch.cat([frames, frames.new_zeros((pad, *frames.shape[1:]))])
+        fn, decision = compile_step(shard, mesh, batch_shape=(n + pad,),
+                                    in_specs=(Spec(), mesh.data_spec),
+                                    out_specs=mesh.data_spec)
+        if decision.strategy == "jit":
+            frames = frames.to(mesh.device)
+        return fn(params, frames)[:n]
+
+    return infer_on_mesh
 
 
 def upscale_frames(params: Mapping[str, torch.Tensor], frames_u8,

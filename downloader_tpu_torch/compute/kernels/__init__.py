@@ -10,7 +10,11 @@ with the same sources loads the cached libraries without compiling.
 Nothing here runs at import: the first :func:`function` call builds.
 Every C entry point launches on the stream it is given, never
 synchronises, and returns ``cudaGetLastError()``; :func:`check` turns a
-non-zero code into an exception.  There is no fallback: a missing
+non-zero code into an exception.  The runtime API launches on the
+*current* device, so every wrapper calls its entry point through
+:func:`launch`, which makes the operands' device current around the
+call (an operand on ``cuda:1`` while device 0 is current would be a
+launch into another device's stream).  There is no fallback: a missing
 ``nvcc`` or a failed build raises.
 """
 
@@ -181,3 +185,24 @@ def stream_handle(device) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def same_device(name: str, **operands):
+    """The one device every operand (a tensor) lies on; raises
+    ``ValueError`` naming them when they lie on more than one."""
+    devices = {t.device for t in operands.values()}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: operands on several devices: " + ", ".join(
+            f"{k} on {t.device}" for k, t in operands.items()))
+    return devices.pop()
+
+
+def launch(fn, name: str, device, *args) -> None:
+    """Call C entry point ``fn`` (a :func:`function` or a
+    :func:`build_variants` build) with ``args`` and the current stream of
+    ``device``, with ``device`` the current device for the call; raise if
+    it reports a CUDA error."""
+    import torch
+
+    with torch.cuda.device(device):
+        check(fn(*args, stream_handle(device)), name)

@@ -286,10 +286,9 @@ def launch_s2d_tail(packed: torch.Tensor, r: int, launch):
     chroma = torch.empty((2, b, height, width), dtype=torch.uint8,
                          device=packed.device)
     if luma.numel():
-        kernels.check(launch(packed.data_ptr(), luma.data_ptr(),
-                             chroma.data_ptr(), b, height, width, r,
-                             float(_inv_count(r * r)), _tail_coeffs(),
-                             kernels.stream_handle(packed.device)), "s2d_tail")
+        kernels.launch(launch, "s2d_tail", packed.device, packed.data_ptr(),
+                       luma.data_ptr(), chroma.data_ptr(), b, height, width, r,
+                       float(_inv_count(r * r)), _tail_coeffs())
     return luma, chroma[0], chroma[1]
 
 

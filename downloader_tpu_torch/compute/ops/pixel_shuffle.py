@@ -48,8 +48,8 @@ def quantize_u8_plain(x: torch.Tensor) -> torch.Tensor:
 def quantize_u8(x: torch.Tensor) -> torch.Tensor:
     """clip(round(x), 0, 255) -> uint8, any shape, f32 or bf16.
 
-    A CUDA tensor launches the kernel (contiguous input required) on the
-    current stream without synchronising; a CPU tensor takes
+    A CUDA tensor launches the kernel (contiguous input required) on its
+    device's current stream without synchronising; a CPU tensor takes
     :func:`quantize_u8_plain`.  ``quantize_u8.launches`` counts kernel
     launches."""
     if x.device.type == "cpu":
@@ -63,10 +63,9 @@ def quantize_u8(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
     if x.numel() == 0:
         return out
-    launch = kernels.function("quantize_u8")
-    kernels.check(launch(x.data_ptr(), out.data_ptr(), x.numel(),
-                         int(x.dtype == torch.bfloat16),
-                         kernels.stream_handle(x.device)), "quantize_u8")
+    kernels.launch(kernels.function("quantize_u8"), "quantize_u8", x.device,
+                   x.data_ptr(), out.data_ptr(), x.numel(),
+                   int(x.dtype == torch.bfloat16))
     kernels.count_launch(quantize_u8)
     return out
 

@@ -130,9 +130,10 @@ def s2d_head_kernel(feats: torch.Tensor, k4: torch.Tensor, bias4: torch.Tensor,
     ``bias4`` (48,) bf16 (the bias tiled 4 times) -> (B, H/2, W/2, 48) in
     ``out_dtype`` (bf16 or f32).
 
-    A CUDA tensor launches ``csrc/s2d_head.cu`` on the current stream and
-    raises on any other dtype, shape, layout or device — it never gives
-    way to cuDNN; ``s2d_head_kernel.launches`` counts its launches.  A
+    A CUDA tensor launches ``csrc/s2d_head.cu`` on its device's current
+    stream and raises on any other dtype, shape, layout or device (the
+    three operands on more than one device too) — it never gives way to
+    cuDNN; ``s2d_head_kernel.launches`` counts its launches.  A
     CPU tensor takes :func:`s2d_head_kernel_plain`.
 
     The kernel: persistent blocks, a TMA producer warp and two ``wgmma``
@@ -149,10 +150,7 @@ def s2d_head_kernel(feats: torch.Tensor, k4: torch.Tensor, bias4: torch.Tensor,
         return s2d_head_kernel_plain(feats, k4, bias4, out_dtype)
     if feats.device.type != "cuda":
         raise ValueError(f"s2d_head_kernel: unsupported device {feats.device}")
-    for name, t in (("k4", k4), ("bias4", bias4)):
-        if t.device != feats.device:
-            raise ValueError(f"s2d head kernel: {name} on {t.device}, "
-                             f"feats on {feats.device}")
+    kernels.same_device("s2d head kernel", feats=feats, k4=k4, bias4=bias4)
     for name, t in (("feats", feats), ("k4", k4), ("bias4", bias4)):
         if t.dtype != torch.bfloat16:
             raise TypeError(f"s2d head kernel takes bfloat16 {name}, got {t.dtype}")
@@ -176,11 +174,9 @@ def s2d_head_kernel(feats: torch.Tensor, k4: torch.Tensor, bias4: torch.Tensor,
                       device=feats.device)
     if out.numel():
         w16 = repack_k4(k4)
-        launch = kernels.function("s2d_head")
-        kernels.check(launch(feats.data_ptr(), w16.data_ptr(), bias4.data_ptr(),
-                             out.data_ptr(), b, h, w,
-                             int(out_dtype == torch.float32),
-                             kernels.stream_handle(feats.device)), "s2d_head")
+        kernels.launch(kernels.function("s2d_head"), "s2d_head", feats.device,
+                       feats.data_ptr(), w16.data_ptr(), bias4.data_ptr(),
+                       out.data_ptr(), b, h, w, int(out_dtype == torch.float32))
         kernels.count_launch(s2d_head_kernel)
     return out
 

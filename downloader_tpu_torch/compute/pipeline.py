@@ -23,29 +23,44 @@ starves the dispatch batch below ``TARGET_FRAMES`` (4K at batch 2 runs as
 kept regions.  The halo covers the receptive radius and the outer tiles
 sit on the frame edges, so the result is the untiled one.
 
-PyTorch runs eagerly, so the reference's static-shape padding of the
-last short batch is not needed: every batch runs at its own size and
-the returned shapes match the reference's.  The tiling decision is
-still taken on the padded size the reference would dispatch
+PyTorch runs eagerly, so on one device the reference's static-shape
+padding of the last short batch is not needed: every batch runs at its
+own size and the returned shapes match the reference's.  The tiling
+decision is still taken on the padded size the reference would dispatch
 (:meth:`FrameUpscaler.batch_for`), so a short last batch tiles like the
 others.
 
-Transfers (on CUDA): the planes are copied into pinned host buffers and
-uploaded with ``non_blocking``; the outputs' d2h copies into pinned
-buffers are queued right behind the compute at dispatch, with a CUDA
-event after each.  PyTorch's caching host allocator hands a freed pinned
-block out again only after the copies recorded on it have completed, and
-every buffer of a batch is held by its handle until :meth:`_fetch`, so a
-pinned buffer is never reused while its batch is in flight.
+Devices (the reference's ``:192-219``): with ``use_mesh`` (the default)
+an engine on CUDA adopts every visible card; ``devices=`` names the list
+(a device may repeat: ``["cpu"] * 8`` stands for XLA's 8 virtual host
+devices, ``["cuda:0", "cuda:0"]`` drives the split on one card).  The
+batch is rounded up to a multiple of the device count, the model is
+replicated once per distinct device, and each dispatch zero-pads to the
+static batch, splits it into equal shards and runs one on each device;
+batch entries are independent through every conv, so the split changes
+no pixel.  With one device nothing is padded: every batch runs at its
+own size.
+
+Transfers (on CUDA): the planes are copied into one pinned host buffer
+each and every shard's rows are uploaded from it with ``non_blocking``
+under its device; each shard's d2h copies into its rows of one pinned
+output buffer per plane are queued right behind its compute at
+dispatch, with a CUDA event after each.  PyTorch's caching
+host allocator hands a freed pinned block out again only after the
+copies recorded on it have completed, and every buffer of a batch is
+held by its handle until :meth:`_fetch`, so a pinned buffer is never
+reused while its batch is in flight.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import threading
 import time
-from typing import Iterable, Iterator, List, Mapping, Optional, Tuple
+from typing import (Dict, Iterable, Iterator, List, Mapping, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -63,6 +78,8 @@ from .ops.colorspace import (
 )
 from .ops.pixel_shuffle import quantize_u8
 from .ops.s2d_head import s2d_head
+from .parallel.chooser import Decision, compile_step
+from .parallel.mesh import MeshPlan
 from .parallel.transfer import HopSink, TransferQueue, timed_hop
 from .video import Y4MReader, Y4MWriter
 
@@ -157,20 +174,32 @@ def no_tf32():
                  torch.backends.cuda.matmul.allow_tf32) = _tf32_saved
 
 
+def _indexed(device: torch.device) -> torch.device:
+    """``cuda`` as the card it means (``cuda:<current>``), so devices
+    compare equal to a tensor's ``.device``."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 @dataclasses.dataclass
 class _InFlight:
-    """One dispatched batch: its host-side outputs (pinned, filling on
-    CUDA), the events that mark compute and copy done, and every buffer
-    the device may still read or write."""
+    """One dispatched batch: its host-side outputs (pinned and filling on
+    CUDA, each shard's rows copied into place), per shard the events that
+    mark its compute and copy done, every buffer the devices may still
+    read or write, and how many of the rows are frames (the rest is
+    padding)."""
 
-    outputs: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
-    computed: Optional[torch.cuda.Event]
-    copied: Optional[torch.cuda.Event]
+    outputs: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+    computed: List[torch.cuda.Event]
+    copied: List[torch.cuda.Event]
     keep: List[torch.Tensor]
+    n: int
 
 
 class FrameUpscaler:
-    """Holds the model and runs every inference branch on one device."""
+    """Holds the model and runs every inference branch, data-parallel
+    over its devices."""
 
     # Pixel budget per dispatch, kept from the reference unchanged: sized
     # there for a 16 GB TPU (8 x 1080p).  Re-deriving it for an 80 GB
@@ -185,6 +214,8 @@ class FrameUpscaler:
         seed: int = 0,
         device=None,
         checkpoint_dir: Optional[str] = None,
+        use_mesh: bool = True,
+        devices: Optional[Sequence] = None,
     ):
         """``params`` is a state dict of :class:`Upscaler` (e.g. from
         :func:`..weights.from_flax`); ``checkpoint_dir`` a directory the
@@ -193,19 +224,43 @@ class FrameUpscaler:
         checkpoint raises, as :func:`..checkpoint.restore_state` does).
         Without either the model is seeded from ``seed``.  ``device``
         defaults to CUDA and raises without a GPU; pass ``"cpu"`` for the
-        plain PyTorch path."""
+        plain PyTorch path.  ``use_mesh`` spreads the batch over every
+        visible card (on the CPU there is one device); ``devices`` names
+        the devices instead, repeats allowed."""
         if params is not None and checkpoint_dir is not None:
             raise ValueError("pass params or checkpoint_dir, not both")
-        self.device = resolve_device(device)
+        if devices is not None:
+            devices = [_indexed(resolve_device(d)) for d in devices]
+            if not devices:
+                raise ValueError("devices= names no device")
+        else:
+            home = _indexed(resolve_device(device))
+            devices = ([torch.device("cuda", i)
+                        for i in range(torch.cuda.device_count())]
+                       if use_mesh and home.type == "cuda" else [home])
+        self.devices: List[torch.device] = devices
+        self.device = devices[0]
         self.config = config
         model = Upscaler(config, seed=seed)
         if checkpoint_dir is not None:
             _step, params, _opt = restore_state(checkpoint_dir, model.state_dict())
         if params is not None:
             model.load_state_dict(params)
-        self.model = model.to(self.device).eval().requires_grad_(False)
-        self.n_devices = 1
-        self.batch = max(1, batch)
+        model.eval().requires_grad_(False)
+        # one replica per distinct device, each a copy of the same weights
+        distinct = list(dict.fromkeys(devices))
+        self._replicas = {dev: copy.deepcopy(model).to(dev)
+                          for dev in distinct[1:]}
+        self._replicas[self.device] = model.to(self.device)
+        self.model = self._replicas[self.device]
+        self.n_devices = len(devices)
+        # static batch: a multiple of the device count, so every device
+        # gets an equal shard
+        self.batch = -(-max(1, batch) // self.n_devices) * self.n_devices
+        self.plan = MeshPlan.over(devices)
+        # (sub_h, sub_w) -> the chooser's Decision: pjit over several
+        # devices (the engine places its shards), jit on one
+        self.compile_decisions: Dict[Tuple[int, int], Decision] = {}
         # per-job hop billing target (see parallel/transfer.py)
         self.hop_sink = HopSink()
 
@@ -230,10 +285,15 @@ class FrameUpscaler:
                                  upsample_chroma(cb.float(), sub_h, sub_w),
                                  upsample_chroma(cr.float(), sub_h, sub_w))
 
+    def _model_on(self, device: torch.device) -> Upscaler:
+        """The replica on ``device``."""
+        return self._replicas[device]
+
     def _s2d_head(self, rgb: torch.Tensor) -> torch.Tensor:
-        head = self.model.subpixel
+        model = self._model_on(rgb.device)
+        head = model.subpixel
         with no_tf32():
-            feats = self.model.trunk(rgb)
+            feats = model.trunk(rgb)
             return s2d_head(feats, head.weight.permute(2, 3, 1, 0), head.bias,
                             self.config.compute_dtype)
 
@@ -257,11 +317,11 @@ class FrameUpscaler:
                 return fused_subpixel_ycc_s2d(self._s2d_head(rgb), scale)
             # odd frame dims: the fused sub-pixel tail on the plain head
             with no_tf32():
-                h12 = self.model.backbone(rgb)
+                h12 = self._model_on(rgb.device).backbone(rgb)
             return fused_subpixel_ycc(h12, scale)
         # generic tail: shuffle, then transform
         with no_tf32():
-            out = self.model(rgb)
+            out = self._model_on(rgb.device)(rgb)
         y2, cb2, cr2 = rgb_to_ycbcr(out.float() * 255.0)
         cb2 = downsample_chroma(cb2, sub_h, sub_w)
         cr2 = downsample_chroma(cr2, sub_h, sub_w)
@@ -315,60 +375,101 @@ class FrameUpscaler:
         return self._tiled(y, cb, cr, sub_h, sub_w, rows, cols)
 
     # ------------------------------------------------------------------
+    def _decide(self, sub_h: int, sub_w: int) -> None:
+        """Record the chooser's decision for this chroma sampling: the
+        engine places its shards itself (explicit shardings), as the
+        reference's ``_compiled`` does."""
+        if (sub_h, sub_w) not in self.compile_decisions:
+            meshed = self.n_devices > 1
+            data = self.plan.data_spec
+            _fn, decision = compile_step(
+                self._core, self.plan if meshed else None,
+                batch_shape=(self.batch,),
+                in_shardings=(self.plan.replicated, data, data, data)
+                if meshed else None)
+            self.compile_decisions[(sub_h, sub_w)] = decision
+
     def _dispatch(self, y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
                   sub_h: int, sub_w: int) -> _InFlight:
-        """Stage and launch one batch WITHOUT waiting for the device; the
-        d2h copies are queued behind the compute.  :meth:`_fetch`
+        """Stage and launch one batch WITHOUT waiting for the devices: on
+        several devices zero-padded to the static batch and cut into one
+        equal shard per device, each shard's d2h copy queued behind its
+        compute into its rows of one pinned output.  :meth:`_fetch`
         materializes the result."""
+        self._decide(sub_h, sub_w)
         planes = (y, cb, cr)
+        n = y.shape[0]
+        total = n
+        if self.n_devices > 1:
+            total = max(n, self.batch_for(y.shape[1], y.shape[2]))
+        rows = total // self.n_devices
+        nbytes = int(sum(a[0].nbytes for a in planes)) * total
         if self.device.type == "cpu":
             # the same three hops as on the card, around the steps that
             # stand for them here: wrapping, the (synchronous) compute,
             # and the conversion back in _fetch
-            with timed_hop(self.hop_sink, "h2d",
-                           int(sum(a.nbytes for a in planes))):
-                dev = [torch.from_numpy(np.ascontiguousarray(a))
-                       for a in planes]
+            with timed_hop(self.hop_sink, "h2d", nbytes):
+                dev = [torch.from_numpy(np.ascontiguousarray(a)) for a in planes]
+                if total > n:
+                    dev = [torch.cat([t, t.new_zeros((total - n, *t.shape[1:]))])
+                           for t in dev]
             t0 = time.monotonic()
-            out = self._core(*dev, sub_h, sub_w)
+            shards = [self._core(*(t[i * rows:(i + 1) * rows] for t in dev),
+                                 sub_h, sub_w) for i in range(self.n_devices)]
+            out = tuple(torch.cat(parts) if len(parts) > 1 else parts[0]
+                        for parts in zip(*shards))
             self.hop_sink.note("compute", sum(int(t.numel()) for t in out),
                                time.monotonic() - t0)
-            return _InFlight(out, None, None, [])
-        with timed_hop(self.hop_sink, "h2d",
-                       int(sum(a.nbytes for a in planes))):
-            pinned = [torch.empty(a.shape, dtype=torch.uint8, pin_memory=True)
-                      for a in planes]
-            for buf, arr in zip(pinned, planes):
-                buf.numpy()[...] = arr
-            dev = [buf.to(self.device, non_blocking=True) for buf in pinned]
-        out = self._core(*dev, sub_h, sub_w)
-        computed = torch.cuda.Event()
-        computed.record()
-        host = tuple(torch.empty(t.shape, dtype=torch.uint8, pin_memory=True)
-                     for t in out)
-        for dst, src in zip(host, out):
-            dst.copy_(src, non_blocking=True)
-        copied = torch.cuda.Event()
-        copied.record()
-        return _InFlight(host, computed, copied, [*pinned, *dev, *out])
+            return _InFlight(out, [], [], [], n)
+        with timed_hop(self.hop_sink, "h2d", nbytes):
+            pinned = []
+            for arr in planes:
+                buf = torch.empty((total, *arr.shape[1:]), dtype=torch.uint8,
+                                  pin_memory=True)
+                view = buf.numpy()
+                view[:n] = arr
+                view[n:] = 0
+                pinned.append(buf)
+            dev = []
+            for i, device in enumerate(self.devices):
+                with torch.cuda.device(device):
+                    dev.append([buf[i * rows:(i + 1) * rows].to(device, non_blocking=True)
+                                for buf in pinned])
+        handle = _InFlight(None, [], [], pinned, n)
+        for i, (device, planes_i) in enumerate(zip(self.devices, dev)):
+            with torch.cuda.device(device):
+                out = self._core(*planes_i, sub_h, sub_w)
+                computed = torch.cuda.Event()
+                computed.record()
+                if handle.outputs is None:
+                    handle.outputs = tuple(
+                        torch.empty((total, *t.shape[1:]), dtype=torch.uint8,
+                                    pin_memory=True) for t in out)
+                for dst, src in zip(handle.outputs, out):
+                    dst[i * rows:(i + 1) * rows].copy_(src, non_blocking=True)
+                copied = torch.cuda.Event()
+                copied.record()
+            handle.computed.append(computed)
+            handle.copied.append(copied)
+            handle.keep.extend([*planes_i, *out])
+        return handle
 
     def _fetch(self, handle: _InFlight) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Materialize one dispatched batch, billing ``compute`` as the
-        wait for the compute event and ``d2h`` as the wait for the rest
-        of the copies (mostly done by then: they started at dispatch);
-        on the CPU ``d2h`` is the conversion to numpy."""
+        wait for every shard's compute event and ``d2h`` as the wait for
+        the rest of the copies (mostly done by then: they started at
+        dispatch); on the CPU ``d2h`` is the conversion to numpy.  The
+        padding is dropped."""
         nbytes = sum(int(t.numel()) for t in handle.outputs)
-        if handle.computed is None:
-            # the CPU: compute was billed at dispatch
-            with timed_hop(self.hop_sink, "d2h", nbytes):
-                y2, cb2, cr2 = (t.numpy() for t in handle.outputs)
-            return y2, cb2, cr2
-        with timed_hop(self.hop_sink, "compute", nbytes):
-            handle.computed.synchronize()
+        if handle.computed:  # on the CPU compute was billed at dispatch
+            with timed_hop(self.hop_sink, "compute", nbytes):
+                for event in handle.computed:
+                    event.synchronize()
         with timed_hop(self.hop_sink, "d2h", nbytes):
-            handle.copied.synchronize()
-        handle.keep.clear()
-        y2, cb2, cr2 = (t.numpy() for t in handle.outputs)
+            for event in handle.copied:
+                event.synchronize()
+            handle.keep.clear()
+            y2, cb2, cr2 = (t.numpy()[:handle.n] for t in handle.outputs)
         return y2, cb2, cr2
 
     def upscale_batch(
@@ -462,3 +563,22 @@ def upscaler_flops_per_frame(config: UpscalerConfig, height: int, width: int) ->
     body = (config.depth - 1) * 2 * pixels * 3 * 3 * f * f
     head = 2 * pixels * 3 * 3 * f * (config.channels * config.scale**2)
     return stem + body + head
+
+
+# dense bf16 tensor-core peak TFLOP/s per card (no sparsity), by a
+# substring of ``torch.cuda.get_device_name``; first match wins (the SXM
+# H100 reports no form factor in its name).  NVIDIA's data sheets.
+_GPU_PEAKS = [
+    ("H100 PCIe", 756.0),
+    ("H200", 989.0),
+    ("H100", 989.0),
+]
+
+
+def device_peak_tflops(device_name: str) -> Optional[float]:
+    """The card's dense bf16 peak in TFLOP/s, or None for a device this
+    table does not know (the CPU among them)."""
+    for tag, peak in _GPU_PEAKS:
+        if tag in device_name:
+            return peak
+    return None

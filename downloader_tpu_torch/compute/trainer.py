@@ -14,9 +14,16 @@ media, as the reference's is.  Batches cross to the card through pinned
 buffers with non-blocking copies, and the loss is read back only at log
 steps, so the host never waits for the card in between.
 
-It runs on one device.  As in the reference, ``model_axis`` is read only
-where more than one device is visible; there a mesh (data parallelism
-over every visible GPU) waits for the multi-GPU slice, so it raises.
+Devices, as the reference's ``:145-157``: on one device the loop runs
+as above.  Inside a process group of more than one rank (one process
+per device: :func:`train_in_group`, or ``torchrun``) it builds a (data
+x model) mesh of ``model_axis``, rounds the batch up to the data axis,
+and every rank draws the same crop stream and keeps its rows
+(:func:`~.parallel.mesh.shard_batch`); rank 0 logs, every rank takes
+part in a save and rank 0 writes it.  ``train()`` on CUDA with more than
+one visible card and no group starts that group itself, one worker per
+card (NCCL), so the ``train`` CLI adopts every card, as the
+reference's does.
 """
 
 from __future__ import annotations
@@ -31,8 +38,10 @@ import torch
 
 from .. import resolve_device
 from .checkpoint import load_optimizer_state, restore_state, save_state
-from .models.upscaler import UpscalerConfig
-from .train import make_train_step
+from .models.upscaler import Upscaler, UpscalerConfig
+from .parallel.group import run_group
+from .parallel.mesh import make_mesh, shard_batch
+from .train import compile_train_step
 from .video import Y4MReader
 
 # numpy mirror of ops/colorspace's BT.601 full-range inverse (the data
@@ -133,24 +142,27 @@ def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return pinned.to(device, non_blocking=True)
 
 
+def _world() -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
 def train(paths: Sequence[str], settings: TrainerSettings = TrainerSettings(),
           log: Optional[Callable[[str], None]] = None, device=None) -> dict:
     """Run the training loop; returns a summary dict (final step/loss).
 
-    Resumes from ``checkpoint_dir``'s latest step when one exists.  A
-    checkpoint directory that holds another format, or a model of
-    another geometry, raises rather than starting afresh.  ``device``
-    defaults to CUDA and raises without a GPU; pass ``"cpu"`` for the
-    plain PyTorch path."""
-    emit = log or (lambda _line: None)
+    Resumes from ``checkpoint_dir``'s latest step when one exists (a
+    state saved on one device or on any mesh shape).  A checkpoint
+    directory that holds another format, or a model of another geometry,
+    raises rather than starting afresh.  ``device`` defaults to CUDA and
+    raises without a GPU; pass ``"cpu"`` for the plain PyTorch path.
+    More than one visible card and no process group: the loop runs in a
+    group of one worker per card (:func:`train_in_group`)."""
     dev = resolve_device(device)
-    # the model axis splits a mesh, as in the reference, which reads it
-    # only with more than one device; one card trains as one device
-    if (settings.model_axis != 1 and dev.type == "cuda"
-            and torch.cuda.device_count() > 1):
-        raise NotImplementedError(
-            f"model_axis {settings.model_axis}: tensor parallelism comes "
-            "with the multi-GPU slice; the trainer runs on one device")
+    if dev.type == "cuda" and _world() == 1 and torch.cuda.device_count() > 1:
+        return train_in_group(paths, settings, torch.cuda.device_count(),
+                              "cuda", log=log)
     config = UpscalerConfig(
         scale=settings.scale,
         features=settings.features,
@@ -159,19 +171,30 @@ def train(paths: Sequence[str], settings: TrainerSettings = TrainerSettings(),
     scale = config.scale
     if settings.crop % scale:
         raise ValueError(f"crop {settings.crop} not divisible by scale {scale}")
-    batch = settings.batch
 
-    train_step, init_state = make_train_step(
-        config, learning_rate=settings.learning_rate, device=dev
-    )
+    plan = None
+    rank = 0
+    if _world() > 1:
+        import torch.distributed as dist
+
+        plan = make_mesh(model_axis=settings.model_axis, device=dev)
+        rank = dist.get_rank()
+    emit = (log or (lambda _line: None)) if rank == 0 else (lambda _line: None)
+    # equal shards per data-axis device
+    data_axis = plan.shape["data"] if plan is not None else 1
+    batch = -(-settings.batch // data_axis) * data_axis
+
+    train_step, init_state, _decision = compile_train_step(
+        config, mesh=plan, learning_rate=settings.learning_rate, device=dev)
     state = init_state(settings.seed)
 
     start_step = 0
     if settings.checkpoint_dir and os.path.isdir(settings.checkpoint_dir):
+        whole = (state.model.state_dict() if plan is None
+                 else Upscaler(config, seed=None).state_dict())
         try:
             start_step, params, opt_state = restore_state(
-                settings.checkpoint_dir, state.model.state_dict()
-            )
+                settings.checkpoint_dir, whole, plan=plan)
         except FileNotFoundError:
             pass
         else:
@@ -183,7 +206,7 @@ def train(paths: Sequence[str], settings: TrainerSettings = TrainerSettings(),
 
     def save(step: int) -> None:
         if save_state(settings.checkpoint_dir, step, state.model.state_dict(),
-                      state.optimizer.state_dict()):
+                      state.optimizer.state_dict(), plan=plan):
             emit(f"checkpoint saved at step {step}")
 
     last_loss = float("nan")
@@ -193,7 +216,11 @@ def train(paths: Sequence[str], settings: TrainerSettings = TrainerSettings(),
     for step in range(start_step + 1, start_step + settings.steps + 1):
         hr = np.stack([next(crops) for _ in range(batch)])
         lr = box_downsample(hr, scale).astype(np.float32)
-        loss = train_step(state, _to_device(lr, dev), _to_device(hr, dev))
+        if plan is not None:
+            lr_dev, hr_dev = shard_batch(plan, (lr, hr))
+        else:
+            lr_dev, hr_dev = _to_device(lr, dev), _to_device(hr, dev)
+        loss = train_step(state, lr_dev, hr_dev)
         if step % settings.log_every == 0 or step == start_step + 1:
             last_loss = float(loss)
             rate = (step - start_step) / (time.monotonic() - started)
@@ -213,6 +240,23 @@ def train(paths: Sequence[str], settings: TrainerSettings = TrainerSettings(),
         "final_loss": last_loss,
         "final_psnr_db": -10.0 * float(np.log10(max(last_loss, 1e-12))),
         "batch": batch,
-        "devices": 1,
-        "mesh": None,
+        "devices": plan.size if plan is not None else 1,
+        "mesh": plan.shape if plan is not None else None,
     }
+
+
+def _train_worker(log, paths: List[str], settings: TrainerSettings,
+                  device_type: str) -> dict:
+    return train(paths, settings, log=log, device=device_type)
+
+
+def train_in_group(paths: Sequence[str], settings: TrainerSettings, world: int,
+                   device_type: str = "cuda",
+                   log: Optional[Callable[[str], None]] = None,
+                   timeout: float = 24 * 3600.0) -> dict:
+    """:func:`train` in a new process group of ``world`` ranks, one per
+    card (NCCL; ``device_type="cpu"``: gloo, one CPU thread each); rank
+    0's log lines reach ``log`` here.  Returns rank 0's summary."""
+    return run_group(_train_worker, world, device_type,
+                     args=(list(paths), settings, device_type),
+                     timeout=timeout, log=log)[0]

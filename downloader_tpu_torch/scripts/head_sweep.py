@@ -55,9 +55,8 @@ def _runner(fn, feats, w16, bias4):
     out = torch.empty((b, h // 2, w // 2, 48), dtype=torch.bfloat16, device=feats.device)
 
     def run():
-        kernels.check(fn(feats.data_ptr(), w16.data_ptr(), bias4.data_ptr(),
-                         out.data_ptr(), b, h, w, 0,
-                         kernels.stream_handle(feats.device)), "s2d_head")
+        kernels.launch(fn, "s2d_head", feats.device, feats.data_ptr(),
+                       w16.data_ptr(), bias4.data_ptr(), out.data_ptr(), b, h, w, 0)
         return out
     return run
 

@@ -35,9 +35,9 @@ What differs from the reference, all in ``instance.upscale``:
   ``compute.upscale`` Retrier seam, so the job fails through the retries
   and the ``compute`` breaker, as a wedged chip does in the reference.
   There is no fallback to the CPU.
-- ``use_mesh`` is read: with one visible card it changes nothing (as on
-  a one-chip mesh); with more, the engine runs on card 0 and logs once
-  that data parallelism waits for the multi-GPU slice.
+- ``use_mesh`` (the default) spreads each batch over every visible card,
+  as the reference's engine spans every device; on the CPU there is one
+  device.
 - ``donate`` is read and is a no-op: buffer donation has no meaning in
   eager PyTorch.
 - ``checkpoint`` names a directory written by the port's own ``train``;
@@ -132,17 +132,9 @@ def _get_engine(ctx: StageContext):
                 ),
                 batch=opts["batch"],
                 checkpoint_dir=opts["checkpoint"],
+                use_mesh=opts["use_mesh"],
                 device=opts["device"],
             )
-            if opts["use_mesh"] and opts["device"] == "cuda":
-                import torch
-
-                cards = torch.cuda.device_count()
-                if cards > 1:
-                    ctx.logger.info(
-                        "upscale engine runs on card 0; data parallelism "
-                        "over the other cards waits for the multi-GPU slice",
-                        cards=cards)
             ctx.resources[_ENGINE_KEY] = engine
     return engine
 

@@ -116,6 +116,57 @@ def test_train_command_imports_no_jax_or_reference():
     assert lines[-1] == "BANNED []", proc.stdout
 
 
+_MESH_PROBE = r"""
+import datetime, sys, tempfile
+import numpy as np
+import torch
+import torch.distributed as dist
+from downloader_tpu_torch.graft_entry import _dryrun_worker, dryrun_multichip, entry
+from downloader_tpu_torch.compute.infer import make_infer_fn
+from downloader_tpu_torch.compute.models.upscaler import Upscaler, UpscalerConfig
+from downloader_tpu_torch.compute.overlap_probe import measure_overlap
+from downloader_tpu_torch.compute.parallel import MeshPlan
+from downloader_tpu_torch.compute.pipeline import FrameUpscaler
+fn, args = entry(device="cpu")
+with torch.inference_mode():
+    fn(*args)
+print(dryrun_multichip(2, device="cpu"))
+# a worker's lazy imports, run in this process on a one-rank group
+store = dist.TCPStore("127.0.0.1", 0, 1, is_master=True,
+                      timeout=datetime.timedelta(seconds=60))
+dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+with tempfile.TemporaryDirectory() as ckpt:
+    print(_dryrun_worker(print, "cpu", 1, False, ckpt))
+dist.destroy_process_group()
+config = UpscalerConfig(features=8, depth=2)
+frames = np.zeros((3, 4, 4, 3), np.uint8)
+make_infer_fn(config, mesh=MeshPlan.over(["cpu"] * 2))(Upscaler(config).state_dict(), frames)
+measure_overlap(FrameUpscaler(config, batch=2, devices=["cpu"] * 2), batches=1,
+                frame_interval=0.001)
+banned = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore", "triton",
+          "downloader_tpu")
+hits = sorted(m for m in sys.modules
+              if any(m == b or m.startswith(b + ".") for b in banned))
+print("BANNED", hits)
+"""
+
+
+def test_mesh_paths_import_no_jax_or_reference():
+    """The multi-device path run for real at a tiny size on the CPU — the
+    entry points (``dryrun_multichip`` in a 2-rank gloo group, and its
+    worker in this process), ``infer`` and the engine over several
+    devices, the overlap probe — loads no jax, flax, optax, orbax or
+    JAX-package module (the spawned workers import only the port)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", _MESH_PROBE], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert lines[0].startswith("dryrun_multichip ok: mesh={'data': 1, 'model': 2}")
+    assert lines[-1] == "BANNED []", proc.stdout
+
+
 _SERVICE_CONFIG = """\
 instance:
   download_path: {root}/downloads

@@ -213,7 +213,8 @@ def test_upscale_frames_matches_jax_infer():
 
 
 def test_make_infer_fn_refuses_mesh_and_missing_gpu():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    # a mesh names its own devices: a device beside it is refused
+    with pytest.raises(ValueError, match="not both"):
         port_infer.make_infer_fn(UpscalerConfig(), "cpu", mesh=object())
     with pytest.raises(TypeError, match="uint8"):
         port_infer.make_infer_fn(UpscalerConfig(features=8, depth=2), "cpu")(

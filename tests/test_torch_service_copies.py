@@ -40,7 +40,7 @@ NOT_COPIED_FILES = ("cli.py",)
 
 # the reference's framework-free compute helpers the port copies
 COMPUTE_COPIES = ("compute/video.py", "compute/transcode.py",
-                  "compute/parallel/transfer.py")
+                  "compute/parallel/transfer.py", "compute/overlap_probe.py")
 
 # copies that differ from the reference, each with its reason and the
 # tests that hold it instead
@@ -55,8 +55,9 @@ DIFFERS = {
         "the port's upscale/train CLI with a subcommand",
         "tests/test_torch_isolation.py::test_service_entry_point_serves_and_stops"),
     "stages/upscale.py": (
-        "runs the port's FrameUpscaler: the device knob, use_mesh and donate "
-        "read but not passed, the engine built inside the compute seam",
+        "runs the port's FrameUpscaler: the device knob, use_mesh passed "
+        "(every visible card), donate read but not passed, the engine built "
+        "inside the compute seam",
         "tests/test_torch_stage.py"),
     "incident/fuzz.py": (
         "_replay_variant builds the port's soak world (tests/test_torch_soak.py), "

@@ -404,7 +404,7 @@ async def test_pipeline_end_to_end_with_upscale(tmp_path):
         await store.get_object("triton-staging", "up-1/original/done")
 
         engine = orchestrator.stage_resources["upscale.engine"]
-        assert engine.n_devices == 1  # one device: the port has no mesh yet
+        assert engine.n_devices == 1  # use_mesh on the CPU: one device
         record = orchestrator.registry.get("up-1")
         assert record.state == "DONE" and record.workload == "UPSCALE"
         hops = record.hops.summary()

@@ -227,13 +227,17 @@ def test_train_saves_every_n_steps_and_keeps_three(media_dir, tmp_path):
 
 def test_train_runs_on_one_device_and_raises_without_a_gpu(media_dir, monkeypatch):
     paths = ttrainer.discover_media(str(media_dir))
-    # a model axis is refused only where more than one card is visible
-    # (it would split a mesh, which waits for the multi-GPU slice)
+    # more than one visible card and no process group: train() hands the
+    # loop to a group of one worker per card (NCCL), model axis and all
     with monkeypatch.context() as m:
         m.setattr(torch.cuda, "is_available", lambda: True)
         m.setattr(torch.cuda, "device_count", lambda: 2)
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
-            ttrainer.train(paths, ttrainer.TrainerSettings(steps=1, model_axis=2))
+        calls = []
+        m.setattr(ttrainer, "train_in_group",
+                  lambda *args, **kwargs: calls.append((args, kwargs)) or {})
+        settings = ttrainer.TrainerSettings(steps=1, model_axis=2)
+        ttrainer.train(paths, settings)
+        assert calls == [((paths, settings, 2, "cuda"), {"log": None})]
     with pytest.raises(ValueError, match="not divisible"):
         ttrainer.train(paths, ttrainer.TrainerSettings(steps=1, crop=33),
                        device="cpu")
