@@ -144,10 +144,13 @@ compute-shard:
 # graftlint (downloader_tpu/analysis, docs/ANALYSIS.md): the repo-
 # invariant static analyzer over the full tree (JSON for CI parsing),
 # then the tier-1 gate (zero unsuppressed findings + <10 s budget +
-# registry fixtures)
+# registry fixtures); then the port's own gate (downloader_tpu_torch/
+# analysis over the port's package, its tests and chip_smoke.py)
 lint:
 	python -m downloader_tpu.analysis --json
 	python -m pytest tests/test_lint.py tests/test_analysis.py -q
+	python -m downloader_tpu_torch.analysis --json
+	python -m pytest tests/test_torch_lint.py tests/test_torch_analysis.py -q
 
 bench:
 	python bench.py

@@ -120,7 +120,12 @@ Phases, each failing the run (non-zero exit) on any error:
    each; ``dryrun_multichip`` over the visible cards (its ok line; its
    group of one process per card is spawned through ``run_group``); and
    ``measure_overlap`` on the card's engine at 720p, best of 3 against
-   the reference's alarm (overlap >= 0.5, pipelined <= 0.85 x serial).
+   the reference's alarm (overlap >= 0.5, pipelined <= 0.85 x serial);
+16. the port's lint gate on the card's machine: ``python -m
+   downloader_tpu_torch.analysis --json`` in a subprocess from the repo
+   root (the port's package, its tests and this script) must exit 0 with
+   no finding; the files, the suppressed count, the analyzer's seconds
+   and the Python version are printed.
 
 Every path of phases 5-10, 12, 13, 14 and 15 runs with every kernel's launch counter set to
 0 just before it and read just after; each count must be the one the
@@ -1264,7 +1269,7 @@ def phase_train(torch, launches, work: Path):
             or kept != [20, 40, 50]):
         raise AssertionError(f"train CLI resume: {second[0]!r}, {second[-1]!r}, "
                              f"steps kept {kept}")
-    _say(f"loss trajectory (train CLI, batch 8 crop 64): " + ", ".join(
+    _say("loss trajectory (train CLI, batch 8 crop 64): " + ", ".join(
         f"step {s} {v:.6f}" for s, v in {**losses, **_logged_losses(second)}.items())
          + f"; checkpoints kept {kept}")
 
@@ -1842,6 +1847,25 @@ def phase_mesh(torch, launches, work: Path, fps: dict):
     _say(f"mesh phase: {time.monotonic() - t_phase:.1f} s")
 
 
+def phase_lint() -> None:
+    """The port's graftlint gate over its walk, as ``make lint`` runs it."""
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "downloader_tpu_torch.analysis", "--json"],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    wall = time.monotonic() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"graftlint exited {proc.returncode}:\n"
+                             f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+    report = json.loads(proc.stdout)
+    if report["findings"] != []:
+        raise AssertionError(f"graftlint: {report}")
+    _say(f"lint: 0 findings, {report['suppressed']} suppressed, "
+         f"{report['files']} files, analyzer {report['duration_s']:.3f} s "
+         f"({wall:.2f} s with interpreter start), Python "
+         f"{sys.version.split()[0]}")
+
+
 def _stack_planes(data: bytes, batch: int):
     """The first ``batch`` frames of a Y4M stream as stacked planes."""
     import numpy as np
@@ -1923,6 +1947,7 @@ def main() -> int:
         phase_mesh(torch, launches, work, fps)                  # 15
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    phase_lint()                                                # 16
 
     line = {"kernels": []}
     for k, (_, source, replaces) in kernels_of.items():

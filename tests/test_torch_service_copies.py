@@ -12,6 +12,14 @@ byte (protobuf registers the file in one process-wide descriptor pool,
 where only an identical copy can sit beside the reference's), and its
 ``.proto`` line for line outside its ``//`` comments.
 
+graftlint (``analysis/``) is the reference's too: its modules are copies
+but ``core.py`` (the port's walk and file profiles) and two rule modules
+whose rule docs leave out the reference project's history, which are
+held definition by definition with each exception in
+:data:`ANALYSIS_DIFFERS`.  ``tests/test_torch_analysis.py`` holds every
+definition of ``tests/test_analysis.py``, plus the tests that hold the
+two registries against each other.
+
 ``cli.py`` is held function by function: every top-level function of
 the reference's has a counterpart of the same tree in the port's, but
 those in :data:`CLI_DIFFERS` (the compute commands and the incident
@@ -33,10 +41,12 @@ PORT = os.path.join(REPO, "downloader_tpu_torch")
 TESTS = os.path.join(REPO, "tests")
 
 # what the port does not copy whole: the JAX compute plane (ported by
-# hand), graftlint (it lints the reference's trees; the copy check holds
-# the port), and cli.py (held function by function below)
-NOT_COPIED_DIRS = ("compute", "analysis")
+# hand), cli.py (held function by function below) and three graftlint
+# modules (held definition by definition below)
+NOT_COPIED_DIRS = ("compute",)
 NOT_COPIED_FILES = ("cli.py",)
+ANALYSIS_BY_DEFINITION = ("analysis/core.py", "analysis/asynchrony.py",
+                          "analysis/drift.py")
 
 # the reference's framework-free compute helpers the port copies
 COMPUTE_COPIES = ("compute/video.py", "compute/transcode.py",
@@ -88,6 +98,41 @@ CLI_DIFFERS = {
         "tests/test_torch_cli.py::test_incident_replay_compile_only"),
 }
 
+# top-level definitions of those graftlint modules that differ from the
+# reference's, each with its reason and the tests that hold it instead
+_DOC_REASON = ("the rule's doc is the reference's without its closing "
+               "remark on the reference project's history; the rule is "
+               "the reference's")
+_DOC_MIRRORS = ("tests/test_torch_analysis.py::"
+                "test_registries_hold_the_same_rules, "
+                "tests/test_torch_analysis.py::"
+                "test_registries_agree_on_every_file_where_profiles_agree")
+ANALYSIS_DIFFERS = {
+    "analysis/core.py:DEFAULT_TARGETS": (
+        "the port's walk: its package, tests/test_torch_*.py and "
+        "chip_smoke.py; the reference's trees are the reference gate's",
+        "tests/test_torch_lint.py::test_walk_covers_the_expected_tree"),
+    "analysis/core.py:_CLI_BASENAMES": (
+        "graft_entry.py and chip_smoke.py are CLIs, as the reference's "
+        "__graft_entry__.py is",
+        "tests/test_torch_lint.py::test_port_entry_points_and_spikes_print, "
+        "tests/test_torch_analysis.py::"
+        "test_registries_agree_on_every_file_where_profiles_agree"),
+    "analysis/core.py:file_profile": (
+        "downloader_tpu_torch/scripts/ is a script, as the root scripts/ is",
+        "tests/test_torch_lint.py::test_port_entry_points_and_spikes_print, "
+        "tests/test_torch_analysis.py::"
+        "test_registries_agree_on_every_file_where_profiles_agree"),
+    "analysis/core.py:iter_source_files": (
+        "a target holding a glob character stands for what it matches "
+        "(tests/test_torch_*.py)",
+        "tests/test_torch_lint.py::test_walk_covers_the_expected_tree"),
+    "analysis/asynchrony.py:check_ack_settle": (_DOC_REASON, _DOC_MIRRORS),
+    "analysis/asynchrony.py:check_unbounded_timeout": (_DOC_REASON,
+                                                       _DOC_MIRRORS),
+    "analysis/drift.py:check_event_drift": (_DOC_REASON, _DOC_MIRRORS),
+}
+
 SERVICE = sorted(
     os.path.relpath(os.path.join(root, name), REF)
     for root, dirs, files in os.walk(REF)
@@ -97,7 +142,7 @@ SERVICE = sorted(
     and os.path.relpath(os.path.join(root, name), REF) not in NOT_COPIED_FILES)
 COPIES = [rel for rel in SERVICE + list(COMPUTE_COPIES)
           if rel.endswith(".py") and not rel.endswith("_pb2.py")
-          and rel not in DIFFERS]
+          and rel not in DIFFERS and rel not in ANALYSIS_BY_DEFINITION]
 GENERATED = [rel for rel in SERVICE if rel.endswith("_pb2.py")]
 PROTOS = [rel for rel in SERVICE if rel.endswith(".proto")]
 
@@ -279,3 +324,94 @@ def test_port_stage_registry_names_port_modules(stage):
     assert base._REGISTRY[stage] == f"downloader_tpu_torch.stages.{stage}"
     factory = base.get_stage_factory(stage)
     assert factory.__module__ == f"downloader_tpu_torch.stages.{stage}"
+
+
+def _statements(path: str, reference: bool) -> list:
+    """Top-level statements in order as (name, tree): a definition or a
+    one-name assignment by its name, anything else by its tree."""
+    out = []
+    for node in _parsed(path, reference).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            name = node.name
+        elif (isinstance(node, ast.Assign) and len(node.targets) == 1
+              and isinstance(node.targets[0], ast.Name)):
+            name = node.targets[0].id
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target,
+                                                            ast.Name):
+            name = node.target.id
+        else:
+            name = ast.dump(node)
+        out.append((name, node))
+    return out
+
+
+@pytest.mark.parametrize("rel", ANALYSIS_BY_DEFINITION)
+def test_analysis_module_matches_reference_but_listed(rel):
+    """The module has the reference's statements in the reference's
+    order; each is the reference's, but those in ANALYSIS_DIFFERS, and
+    each of those really differs."""
+    port = _statements(os.path.join(PORT, rel), reference=False)
+    ref = _statements(os.path.join(REF, rel), reference=True)
+    assert [name for name, _ in port] == [name for name, _ in ref]
+    for (name, node), (_, want) in zip(port, ref):
+        listed = f"{rel}:{name}" in ANALYSIS_DIFFERS
+        assert (ast.dump(node) != ast.dump(want)) == listed, (
+            f"downloader_tpu_torch/{rel}: {name} "
+            + ("is the reference's again; take it out of ANALYSIS_DIFFERS"
+               if listed else "differs from the reference; list it in "
+               "ANALYSIS_DIFFERS with its reason and a mirror test"))
+
+
+def test_analysis_differs_are_listed_with_mirrors():
+    for key, (reason, mirrors) in ANALYSIS_DIFFERS.items():
+        rel, name = key.split(":")
+        assert rel in ANALYSIS_BY_DEFINITION and reason
+        assert name in dict(_statements(os.path.join(PORT, rel), False))
+        for mirror in mirrors.split(", "):
+            path, test = mirror.split("::")
+            with open(os.path.join(REPO, path), encoding="utf-8") as fh:
+                assert f"def {test}(" in fh.read(), mirror
+
+
+def _words(text: str) -> list:
+    return re.findall(r"\w+", text)
+
+
+@pytest.mark.parametrize("key", sorted(
+    key for key, (reason, _) in ANALYSIS_DIFFERS.items()
+    if reason == _DOC_REASON))
+def test_analysis_rule_differs_only_in_its_doc(key):
+    """A checker listed for its doc is the reference's checker with the
+    reference's doc in place, and its doc is the reference's with words
+    left out."""
+    rel, name = key.split(":")
+    port = dict(_statements(os.path.join(PORT, rel), False))[name]
+    ref = dict(_statements(os.path.join(REF, rel), True))[name]
+    port_doc = port.decorator_list[0].args[1]
+    ref_doc = ref.decorator_list[0].args[1]
+    kept = iter(_words(ref_doc.value))
+    assert all(word in kept for word in _words(port_doc.value))
+    port.decorator_list[0].args[1] = ref_doc
+    assert ast.dump(port) == ast.dump(ref)
+
+
+def test_port_analysis_tests_are_the_reference_tests():
+    """Every definition of ``tests/test_analysis.py`` is the one of that
+    name in ``tests/test_torch_analysis.py``, in its order; the port adds
+    only imports, constants and the tests of the two registries."""
+    ref = _statements(os.path.join(TESTS, "test_analysis.py"), True)
+    port = _statements(os.path.join(TESTS, "test_torch_analysis.py"), False)
+    ref_names = dict(ref)
+    assert [name for name, _ in port if name in ref_names] == [
+        name for name, _ in ref]
+    for name, node in port:
+        if name in ref_names:
+            assert ast.dump(node) == ast.dump(ref_names[name]), name
+        else:
+            assert isinstance(node, (ast.Import, ast.ImportFrom,
+                                     ast.Assign, ast.FunctionDef)), name
+    added = [name for name, node in port if name not in ref_names
+             and isinstance(node, ast.FunctionDef)
+             and name.startswith("test_")]
+    assert "test_registries_agree_on_every_file_where_profiles_agree" in added
