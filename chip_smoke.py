@@ -125,9 +125,23 @@ Phases, each failing the run (non-zero exit) on any error:
    downloader_tpu_torch.analysis --json`` in a subprocess from the repo
    root (the port's package, its tests and this script) must exit 0 with
    no finding; the files, the suppressed count, the analyzer's seconds
-   and the Python version are printed.
+   and the Python version are printed;
+17. the JAX package's model on the card, from the committed orbax step
+   of ``UpscalerConfig()`` (``compute/orbax_reader/testdata``, written by
+   the JAX package after 3 train steps): read on the card's host with
+   the port's reader (which of orbax, tensorstore, zstandard and JAX are
+   installed is printed; none may be loaded), ``latest_step`` 3, every
+   array's sha256 the manifest's, the read's seconds and MB/s; then
+   ``python -m downloader_tpu_torch upscale --checkpoint-dir`` on the
+   committed 2-frame 128x72 clip against the JAX package's committed CPU
+   output (<= 3 u8 steps, > 90% exact); phase 5's 16-frame 1080p stream
+   through ``upscale_to`` on the restored model (frames/s; 2 tail
+   launches on the ``orbax`` path); last ``train --checkpoint-dir --steps
+   3`` on phase 12's clip on the card and, on another copy, on the CPU:
+   each resumes from step 3 and leaves orbax step 3 beside the port's
+   step 6, and the losses of steps 4 and 6 agree within 1e-3.
 
-Every path of phases 5-10, 12, 13, 14 and 15 runs with every kernel's launch counter set to
+Every path of phases 5-10, 12, 13, 14, 15 and 17 runs with every kernel's launch counter set to
 0 just before it and read just after; each count must be the one the
 path implies (e.g. 3 standalone quantizes per generic-tail batch, 0 head
 kernels on the engine's paths).
@@ -1866,6 +1880,141 @@ def phase_lint() -> None:
          f"{sys.version.split()[0]}")
 
 
+ORBAX_FIXTURE = REPO / "downloader_tpu_torch" / "compute" / "orbax_reader" / "testdata"
+FOREIGN = ("orbax", "tensorstore", "zstandard", "jax")
+
+
+def _orbax_read(work: Path, card_line: str) -> Path:
+    """The committed JAX step read on the card's host: no orbax,
+    tensorstore, zstandard or JAX loaded, every array's sha256 the
+    manifest's; a copy of the step directory is returned."""
+    import hashlib
+    import importlib.util
+
+    from downloader_tpu_torch.compute import checkpoint
+    from downloader_tpu_torch.compute.orbax_reader.step import read_step
+
+    installed = [m for m in FOREIGN if importlib.util.find_spec(m) is not None]
+    _say(f"orbax: installed on this host: {installed or 'none'} of {list(FOREIGN)}")
+    ckpt = work / "orbax_ckpt"
+    shutil.copytree(ORBAX_FIXTURE / "ckpt", ckpt)
+    manifest = json.loads((ORBAX_FIXTURE / "manifest.json").read_text())
+    step_dir = ckpt / str(manifest["step"])
+    size = sum(f.stat().st_size for f in step_dir.rglob("*") if f.is_file())
+    t0 = time.perf_counter()
+    tree = read_step(str(step_dir))
+    seconds = time.perf_counter() - t0
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN)
+    if loaded:
+        raise AssertionError(f"reading the orbax step loaded {loaded}")
+    if checkpoint.latest_step(ckpt) != 3 or manifest["step"] != 3:
+        raise AssertionError(f"orbax fixture: latest step {checkpoint.latest_step(ckpt)}")
+
+    def leaves(node, prefix):
+        for key, value in node.items():
+            if isinstance(value, dict):
+                yield from leaves(value, prefix + (key,))
+            elif value is not None:
+                yield "/".join(prefix + (key,)), value
+
+    arrays = dict(kv for item in ("params", "opt_state")
+                  for kv in leaves(tree[item], (item,)))
+    if set(arrays) != set(manifest["arrays"]):
+        raise AssertionError(f"orbax fixture arrays {sorted(arrays)}")
+    for name, value in arrays.items():
+        if hashlib.sha256(value.tobytes()).hexdigest() != manifest["arrays"][name]["sha256"]:
+            raise AssertionError(f"orbax fixture: {name} differs from the manifest")
+    values = sum(v.size for v in arrays.values())
+    _say(f"orbax: read step 3 of UpscalerConfig() ({size} bytes on disk, "
+         f"{len(arrays)} arrays, {values} values) in {seconds:.3f} s, "
+         f"{size / seconds / 1e6:.3f} MB/s on the card's host, {card_line}; "
+         f"every array's sha256 is the manifest's; loaded of {list(FOREIGN)}: none")
+    return ckpt
+
+
+def phase_orbax(torch, launches, card_line: str):
+    """The JAX package's model on the card: the committed orbax step read
+    without orbax, served by the ``upscale`` CLI (against the JAX
+    package's committed CPU output) and on phase 5's 1080p stream
+    (counted), then its run resumed by the ``train`` CLI on the card and
+    on the CPU."""
+    import numpy as np
+
+    from downloader_tpu_torch.compute.pipeline import FrameUpscaler
+
+    t_phase = time.monotonic()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_orbax_", dir=REPO))
+    try:
+        ckpt = _orbax_read(work, card_line)
+        out = work / "clip.2x.y4m"
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", "downloader_tpu_torch", "upscale",
+             str(ORBAX_FIXTURE / "clip.y4m"), str(out), "--checkpoint-dir", str(ckpt)],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"upscale CLI --checkpoint-dir <orbax> exited "
+                               f"{proc.returncode}: {proc.stderr[-2000:]}")
+        _say(f"python -m downloader_tpu_torch upscale --checkpoint-dir <orbax step>: "
+             f"{proc.stdout.strip()} ({time.monotonic() - t0:.2f} s with process start)")
+        (_, got), (_, want) = _read_y4m(out), _read_y4m(ORBAX_FIXTURE / "clip.2x.y4m")
+        _card_vs_cpu("orbax model vs the JAX package's committed output",
+                     [np.stack([f[i] for f in got]) for i in range(3)],
+                     [np.stack([f[i] for f in want]) for i in range(3)], chip_bound=True)
+
+        src = work / "src.y4m"
+        with open(src, "wb") as fh:
+            _write_y4m(fh, FRAMES, WIDTH, HEIGHT, seed=3)  # phase 5's stream
+        data = src.read_bytes()
+        engine = FrameUpscaler(checkpoint_dir=str(ckpt))
+        engine.upscale_to(io.BytesIO(data), _Sink())  # warm-up
+        with launches.path("orbax", {"s2d_tail": FRAMES // 8}):
+            t0 = time.perf_counter()
+            frames = engine.upscale_to(io.BytesIO(data), _Sink())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if frames != FRAMES:
+            raise AssertionError(f"orbax model upscaled {frames} frames")
+        _say(f"orbax model: {FRAMES} frames of {WIDTH}x{HEIGHT} through upscale_to "
+             f"in {wall:.3f} s, {FRAMES / wall:.2f} frames/s (after one warm-up "
+             f"stream), {card_line}")
+        del engine
+        torch.cuda.empty_cache()
+
+        media = work / "train_media"
+        media.mkdir()
+        with open(media / "clip.y4m", "wb") as fh:   # phase 12's clip
+            _write_training_clip(fh, TRAIN_FRAMES, TRAIN_WIDTH, TRAIN_HEIGHT, seed=21)
+        cpu_ckpt = work / "orbax_ckpt_cpu"
+        shutil.copytree(ckpt, cpu_ckpt)
+        runs = {}
+        for where, directory, extra in (("card", ckpt, []),
+                                        ("CPU", cpu_ckpt, ["--device", "cpu"])):
+            lines = _train_cli(["--data", media, "--steps", 3, "--checkpoint-dir",
+                                directory, *extra], f"orbax resume, {where}")
+            kept = sorted(os.listdir(directory), key=int)
+            if (lines[0] != "resumed from step 3" or "trained to step 6" not in lines[-1]
+                    or kept != ["3", "6"] or not (directory / "3" / "params").is_dir()
+                    or not (directory / "6" / "state.pt").is_file()):
+                raise AssertionError(f"train CLI orbax resume ({where}): {lines[0]!r}, "
+                                     f"{lines[-1]!r}, steps kept {kept}")
+            runs[where] = {**_logged_losses(lines),
+                           6: float(lines[-1].split("(loss ")[1].split(",")[0])}
+        rel = {s: abs(runs["card"][s] - runs["CPU"][s]) / runs["CPU"][s]
+               for s in runs["CPU"]}
+        _say("orbax resume, steps 4 and 6 (batch 8 crop 64): card "
+             + ", ".join(f"{runs['card'][s]:.6f}" for s in sorted(rel)) + "; CPU "
+             + ", ".join(f"{runs['CPU'][s]:.6f}" for s in sorted(rel))
+             + "; relative " + ", ".join(f"{rel[s]:.3e}" for s in sorted(rel))
+             + f" (bound {TRAIN_LOSS_RTOL[0]:g}); each directory holds orbax step 3 "
+             "and the port's step 6")
+        if sorted(rel) != [4, 6] or max(rel.values()) > TRAIN_LOSS_RTOL[0]:
+            raise AssertionError(f"orbax resume card vs CPU: relative {rel}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    _say(f"orbax phase: {time.monotonic() - t_phase:.1f} s")
+
+
 def _stack_planes(data: bytes, batch: int):
     """The first ``batch`` frames of a Y4M stream as stacked planes."""
     import numpy as np
@@ -1948,6 +2097,7 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     phase_lint()                                                # 16
+    phase_orbax(torch, launches, card_line)                     # 17
 
     line = {"kernels": []}
     for k, (_, source, replaces) in kernels_of.items():

@@ -42,6 +42,8 @@ decode front-end and encode back-end around the engine) with the port's
 ``--checkpoint-dir``'s latest step or, without it, the seeded random
 init.  ``train`` fits the upscaler on Y4M media and saves the port's own
 checkpoints (:mod:`.compute.checkpoint`), resuming from the latest one.
+Both take a directory of the JAX package's orbax steps as well: a model
+it trained is served, and a run it started resumed, here.
 Both run on the GPU unless ``--device cpu`` is given, and adopt every
 visible card: ``upscale`` splits each batch over them in one process,
 ``train`` runs one worker per card in a process group (NCCL), with
@@ -394,7 +396,8 @@ def _build_parser() -> argparse.ArgumentParser:
     upscale.add_argument("dst", help="output .y4m path (2x dimensions)")
     upscale.add_argument("--checkpoint-dir", default=None,
                          help="checkpoint dir written by the train command "
-                              "(default: seeded random init)")
+                              "of this package or of the JAX package (its "
+                              "orbax steps) (default: seeded random init)")
     upscale.add_argument("--batch", type=int, default=8,
                          help="frames per device dispatch")
     upscale.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
@@ -431,7 +434,8 @@ def _build_parser() -> argparse.ArgumentParser:
     train.add_argument("--lr", type=float, default=1e-3,
                        help="adam learning rate")
     train.add_argument("--checkpoint-dir", default=None,
-                       help="dir to save to / resume from")
+                       help="dir to save to / resume from (resumes the JAX "
+                            "package's orbax steps too)")
     train.add_argument("--save-every", type=int, default=100)
     train.add_argument("--model-axis", type=int, default=1,
                        help="tensor-parallel axis size of the mesh over "

@@ -14,4 +14,7 @@
 - ``train.py``, ``trainer.py``, ``checkpoint.py`` — the train step, the
                   training loop the ``train`` CLI drives, and the
                   checkpoints both commands share
+- ``orbax_reader/`` — the JAX package's orbax steps read with numpy
+                  alone (zstd, OCDBT, zarr v2), which ``checkpoint.py``
+                  restores beside its own
 """

@@ -25,15 +25,21 @@ gives each rank its block: a mesh state and a single-device state are
 interchangeable, and a state saved on one mesh shape restores onto
 another (the reshape a resize performs).
 
-The JAX package's orbax steps cannot be read here (that needs orbax and
-tensorstore): a directory holding them raises a ``ValueError`` that
-names the format, and is never taken for an empty one.  A model trained
-by the JAX package reaches the port through
-:func:`~.weights.from_flax`, in code that holds both packages.
+A directory may also hold the JAX package's orbax steps
+(``<dir>/<step>/`` with ``_CHECKPOINT_METADATA``, ``params/`` and
+``opt_state/``), which :mod:`.orbax_reader` reads with numpy alone: a
+model trained or a run started by the JAX package is served and resumed
+here.  Its params go through :func:`~.weights.from_flax` and its Adam
+moments through :func:`~.weights.adam_from_optax`.  :func:`latest_step`
+and the keep-last rule count the steps of both formats, and
+:func:`save_state` writes only this package's beside them.  An orbax
+step that cannot be read raises a ``ValueError`` naming the format and
+the file; it is never taken for an empty directory.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import shutil
 import tempfile
@@ -41,19 +47,22 @@ from typing import Any, Callable, List, Mapping, Optional, Tuple
 
 import torch
 
+from .models.upscaler import UpscalerConfig
+from .orbax_reader.step import CHECKPOINT_METADATA, ITEMS, read_step
 from .parallel.mesh import MeshPlan, gather_global, make_global
+from .weights import adam_from_optax, from_flax
 
 FORMAT = "downloader_tpu_torch/checkpoint/1"
 MAX_TO_KEEP = 3
 STATE_FILE = "state.pt"
 
 # what an orbax step directory of the JAX package holds
-_ORBAX_MARKERS = ("_CHECKPOINT_METADATA", "params", "opt_state")
+_ORBAX_MARKERS = (CHECKPOINT_METADATA, *ITEMS)
 
 
 def _steps(directory: str) -> List[int]:
-    """The committed steps under ``directory``, ascending; raises
-    ``ValueError`` on a step directory of another format."""
+    """The committed steps under ``directory``, of either format,
+    ascending; raises ``ValueError`` on a step directory of neither."""
     if not os.path.isdir(directory):
         return []
     steps = []
@@ -61,17 +70,11 @@ def _steps(directory: str) -> List[int]:
         path = os.path.join(directory, name)
         if not (name.isdigit() and os.path.isdir(path)):
             continue
-        if os.path.isfile(os.path.join(path, STATE_FILE)):
-            steps.append(int(name))
-        elif any(os.path.exists(os.path.join(path, m)) for m in _ORBAX_MARKERS):
-            raise ValueError(
-                f"{path} is an orbax checkpoint of the JAX package; this "
-                f"package reads only its own format (<dir>/<step>/"
-                f"{STATE_FILE}). Convert the params with "
-                "downloader_tpu_torch.compute.weights.from_flax")
-        else:
-            raise ValueError(f"{path} holds no {STATE_FILE}: not a "
-                             "checkpoint of this package")
+        if not (os.path.isfile(os.path.join(path, STATE_FILE))
+                or any(os.path.exists(os.path.join(path, m)) for m in _ORBAX_MARKERS)):
+            raise ValueError(f"{path} holds neither {STATE_FILE} nor an orbax "
+                             "step of the JAX package: not a checkpoint")
+        steps.append(int(name))
     return sorted(steps)
 
 
@@ -114,7 +117,9 @@ def save_state(directory: str, step: int, params: Mapping[str, torch.Tensor],
     """Write checkpoint ``step`` under ``directory`` (keeps the last
     :data:`MAX_TO_KEEP`).  ``params`` is the model's state dict,
     ``opt_state`` the optimizer's.  Returns False, writing nothing, when
-    ``step`` is not above the latest saved step, as orbax does.
+    ``step`` is not above the latest saved step, as orbax does.  Steps of
+    the JAX package's orbax format in ``directory`` count for that rule
+    and for the last :data:`MAX_TO_KEEP`, as on orbax's own continued run.
 
     With a ``plan`` in a process group every rank calls this: each
     sharded tensor is gathered whole over its axis and rank 0 writes;
@@ -165,7 +170,10 @@ def restore_state(directory: str, params_like: Mapping[str, torch.Tensor],
                   step: Optional[int] = None, plan: Optional[MeshPlan] = None
                   ) -> Tuple[int, dict, dict]:
     """Restore ``(step, params, opt_state)`` (the latest step unless
-    ``step`` is given), tensors on the CPU.
+    ``step`` is given), tensors on the CPU, from a step of either format:
+    an orbax step of the JAX package comes back as this package's state
+    dicts (the flax params through :func:`~.weights.from_flax`, optax's
+    Adam state through :func:`~.weights.adam_from_optax`).
 
     ``params_like`` is a state dict of the whole model (e.g. a fresh
     one): the saved params must have its keys, shapes and dtypes, else
@@ -182,11 +190,16 @@ def restore_state(directory: str, params_like: Mapping[str, torch.Tensor],
         step = steps[-1]
     elif step not in steps:
         raise FileNotFoundError(f"no checkpoint of step {step} under {directory}")
-    path = os.path.join(directory, str(step), STATE_FILE)
-    blob = torch.load(path, map_location="cpu", weights_only=True)
-    if not isinstance(blob, dict) or blob.get("format") != FORMAT:
-        raise ValueError(f"{path} is not a {FORMAT} checkpoint")
-    params = blob["params"]
+    step_dir = os.path.join(directory, str(step))
+    path = os.path.join(step_dir, STATE_FILE)
+    if os.path.isfile(path):
+        blob = torch.load(path, map_location="cpu", weights_only=True)
+        if not isinstance(blob, dict) or blob.get("format") != FORMAT:
+            raise ValueError(f"{path} is not a {FORMAT} checkpoint")
+        params, opt_state = blob["params"], blob["opt_state"]
+    else:
+        path = f"{step_dir} (an orbax step of the JAX package)"
+        params, opt_state = _read_orbax(step_dir)
     wrong = sorted(
         set(params) ^ set(params_like)
         | {k for k in set(params) & set(params_like)
@@ -197,7 +210,6 @@ def restore_state(directory: str, params_like: Mapping[str, torch.Tensor],
             f"{path} does not fit the model's geometry: "
             + ", ".join(f"{k} saved {_describe(params.get(k))}, model "
                         f"{_describe(params_like.get(k))}" for k in wrong))
-    opt_state = blob["opt_state"]
     if plan is not None:
         names = list(params_like)
         params = {n: make_global(params[n], plan, plan.param_spec(n, params[n]))
@@ -205,6 +217,24 @@ def restore_state(directory: str, params_like: Mapping[str, torch.Tensor],
         opt_state = _per_param(opt_state, names, lambda n, t: make_global(
             t, plan, plan.param_spec(n, t)))
     return step, params, opt_state
+
+
+def _read_orbax(step_dir: str) -> Tuple[dict, dict]:
+    """The params and Adam state of an orbax step, as this package's
+    state dicts, in the geometry the step was saved with."""
+    try:
+        tree = read_step(step_dir)
+        params = tree["params"]["params"]
+        stem, head = params["stem"]["kernel"], params["subpixel"]["kernel"]
+        config = UpscalerConfig(
+            scale=math.isqrt(head.shape[3] // stem.shape[2]), features=stem.shape[3],
+            depth=1 + sum(name.startswith("body_") for name in params),
+            channels=stem.shape[2])
+        return (from_flax(tree["params"], config),
+                adam_from_optax(tree["opt_state"], config))
+    except (KeyError, TypeError, IndexError, ValueError) as err:
+        raise ValueError(f"{step_dir} is an orbax step of the JAX package that "
+                         f"cannot be read: {err}") from err
 
 
 def _describe(t: Optional[torch.Tensor]) -> str:

@@ -219,7 +219,8 @@ class FrameUpscaler:
     ):
         """``params`` is a state dict of :class:`Upscaler` (e.g. from
         :func:`..weights.from_flax`); ``checkpoint_dir`` a directory the
-        trainer saved to, whose latest step's params are loaded (its
+        trainer of either package saved to, whose latest step's params
+        are loaded (its
         optimizer state is ignored; a missing, foreign or mismatched
         checkpoint raises, as :func:`..checkpoint.restore_state` does).
         Without either the model is seeded from ``seed``.  ``device``

@@ -153,9 +153,10 @@ def train(paths: Sequence[str], settings: TrainerSettings = TrainerSettings(),
     """Run the training loop; returns a summary dict (final step/loss).
 
     Resumes from ``checkpoint_dir``'s latest step when one exists (a
-    state saved on one device or on any mesh shape).  A checkpoint
-    directory that holds another format, or a model of another geometry,
-    raises rather than starting afresh.  ``device`` defaults to CUDA and
+    state saved on one device or on any mesh shape, by this package or,
+    as an orbax step, by the JAX package).  A checkpoint directory that
+    holds another format, a step that cannot be read or a model of
+    another geometry raises rather than starting afresh.  ``device`` defaults to CUDA and
     raises without a GPU; pass ``"cpu"`` for the plain PyTorch path.
     More than one visible card and no process group: the loop runs in a
     group of one worker per card (:func:`train_in_group`)."""

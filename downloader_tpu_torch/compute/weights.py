@@ -5,7 +5,9 @@ The reference's tree (``downloader_tpu/compute/models/upscaler.py:94-102``)
 is ``{"params": {"stem": {"kernel", "bias"}, "body_0": ..., "subpixel":
 ...}}`` with HWIO kernels; the port's :class:`~.models.upscaler.Upscaler`
 holds ``<module>.weight`` as OIHW and ``<module>.bias``.  Arrays cross as
-numpy, so neither side imports the other's framework.
+numpy, so neither side imports the other's framework.  Optax's Adam
+state (``downloader_tpu/compute/train.py:26``) crosses the same way into
+a ``torch.optim.Adam`` state dict (:func:`adam_from_optax`).
 """
 
 from __future__ import annotations
@@ -52,3 +54,25 @@ def to_flax(state: Mapping[str, torch.Tensor],
             "bias": state[f"{mod}.bias"].detach().cpu().float().numpy().copy(),
         }
     return {"params": params}
+
+
+def adam_from_optax(opt_tree: Mapping, config: UpscalerConfig = UpscalerConfig()
+                    ) -> Dict:
+    """``optax.adam``'s state ``(ScaleByAdamState(count, mu, nu),
+    EmptyState())`` — as nested mappings keyed ``"0"``/``"1"``, the way
+    an orbax step stores it — -> a ``torch.optim.Adam`` state dict over
+    ``Upscaler(config).parameters()``, one param group, which
+    :func:`~.checkpoint.load_optimizer_state` loads as it is.
+
+    ``mu``/``nu`` become ``exp_avg``/``exp_avg_sq`` (kernels HWIO ->
+    OIHW, as :func:`from_flax` turns them) and ``count`` becomes
+    ``step``: optax corrects its bias with ``count + 1`` and torch
+    increments ``step`` before it corrects, so the run continues exactly."""
+    adam = opt_tree["0"]
+    exp_avg = from_flax(adam["mu"], config)
+    exp_avg_sq = from_flax(adam["nu"], config)
+    step = torch.tensor(float(np.asarray(adam["count"])), dtype=torch.float32)
+    names = [f"{mod}.{leaf}" for mod in _modules(config) for leaf in ("weight", "bias")]
+    state = {i: {"step": step.clone(), "exp_avg": exp_avg[name],
+                 "exp_avg_sq": exp_avg_sq[name]} for i, name in enumerate(names)}
+    return {"state": state, "param_groups": [{"params": list(range(len(names)))}]}

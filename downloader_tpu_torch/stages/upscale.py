@@ -40,8 +40,10 @@ What differs from the reference, all in ``instance.upscale``:
   device.
 - ``donate`` is read and is a no-op: buffer donation has no meaning in
   eager PyTorch.
-- ``checkpoint`` names a directory written by the port's own ``train``;
-  an orbax directory raises the ``ValueError`` that names the format.
+- ``checkpoint`` names a directory written by the port's own ``train``
+  or by the JAX package's (its orbax steps, read by the port's
+  ``restore_state``); a step it cannot read raises the ``ValueError``
+  that names the format.
 
 Stage contract: consumes ``{files, downloadPath}`` from process
 (lib/process.js:117-120 shape), returns the same shape with upscaled

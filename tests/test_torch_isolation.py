@@ -25,8 +25,8 @@ names = ["downloader_tpu_torch"] + [
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-banned = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore", "triton",
-          "downloader_tpu")
+banned = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore", "zstandard",
+          "triton", "downloader_tpu")
 hits = sorted(m for m in sys.modules
               if any(m == b or m.startswith(b + ".") for b in banned))
 print(len(names), "IMPORTED")
@@ -53,8 +53,8 @@ _ENTRY_PROBE = r"""
 import sys
 import downloader_tpu_torch.scripts.head_spike
 import downloader_tpu_torch.compute.infer
-banned = ("jax", "jaxlib", "flax", "optax", "orbax", "triton", "downloader_tpu",
-          "scripts")
+banned = ("jax", "jaxlib", "flax", "optax", "orbax", "zstandard", "triton",
+          "downloader_tpu", "scripts")
 hits = sorted(m for m in sys.modules
               if any(m == b or m.startswith(b + ".") for b in banned))
 print("BANNED", hits)
@@ -93,8 +93,8 @@ ckpt = os.path.join(work, "ckpt")
 assert main(["train", "--data", work, "--steps", "2", "--batch", "2",
              "--crop", "16", "--features", "8", "--depth", "2",
              "--checkpoint-dir", ckpt, "--device", "cpu"]) == 0
-banned = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore", "triton",
-          "downloader_tpu")
+banned = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore", "zstandard",
+          "triton", "downloader_tpu")
 hits = sorted(m for m in sys.modules
               if any(m == b or m.startswith(b + ".") for b in banned))
 print("BANNED", hits)
@@ -143,8 +143,8 @@ frames = np.zeros((3, 4, 4, 3), np.uint8)
 make_infer_fn(config, mesh=MeshPlan.over(["cpu"] * 2))(Upscaler(config).state_dict(), frames)
 measure_overlap(FrameUpscaler(config, batch=2, devices=["cpu"] * 2), batches=1,
                 frame_interval=0.001)
-banned = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore", "triton",
-          "downloader_tpu")
+banned = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore", "zstandard",
+          "triton", "downloader_tpu")
 hits = sorted(m for m in sys.modules
               if any(m == b or m.startswith(b + ".") for b in banned))
 print("BANNED", hits)
@@ -231,7 +231,7 @@ def test_service_entry_point_serves_and_stops(tmp_path):
               if line.startswith("import time:") and "|" in line}
     assert "downloader_tpu_torch.stages.upscale" in loaded
     banned = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore",
-              "downloader_tpu")
+              "zstandard", "downloader_tpu")
     assert sorted(m for m in loaded
                   if any(m == b or m.startswith(b + ".") for b in banned)) == []
 
@@ -264,7 +264,7 @@ def test_stage_registry_resolves_to_the_port():
 
 
 BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore",
-          "downloader_tpu")
+          "zstandard", "downloader_tpu")
 # the reference's test-side modules that import the JAX package
 REFERENCE_TEST_MODULES = ("test_soak", "miniamqp", "minitracker")
 

@@ -67,8 +67,11 @@ DIFFERS = {
     "stages/upscale.py": (
         "runs the port's FrameUpscaler: the device knob, use_mesh passed "
         "(every visible card), donate read but not passed, the engine built "
-        "inside the compute seam",
-        "tests/test_torch_stage.py"),
+        "inside the compute seam; its checkpoint restored by the port's "
+        "restore_state, which reads the port's steps and the JAX package's "
+        "orbax steps",
+        "tests/test_torch_stage.py, "
+        "tests/test_torch_orbax.py::test_service_stage_serves_a_jax_checkpoint"),
     "incident/fuzz.py": (
         "_replay_variant builds the port's soak world (tests/test_torch_soak.py), "
         "never the reference's test_soak, whose rig runs the JAX package's "

@@ -8,6 +8,7 @@ plain ``jax.jit``, on one device.
 """
 
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -240,22 +241,41 @@ def test_missing_checkpoint_raises_file_not_found(tmp_path):
 
 
 def test_orbax_checkpoint_raises_value_error_naming_the_format(tmp_path):
-    """A directory of the JAX package's orbax steps is refused by every
-    reader and by the writer; it is never read as an empty directory."""
+    """What of the JAX package's orbax steps still raises, in every
+    reader, naming the format: a step of another geometry (and the key
+    that does not fit), and a truncated step; neither is read as an empty
+    directory.  The writer writes beside orbax steps, never at or below
+    the latest of them."""
     jcfg = JaxConfig(features=16, depth=2)
     tree = jax.tree_util.tree_map(jnp.asarray, _flax_params(jcfg))
     ckpt = str(tmp_path / "orbax")
     jckpt.save_state(ckpt, 4, tree, optax.adam(1e-3).init(tree))
-    params = FrameUpscaler(TINY, device="cpu").model.state_dict()
-    with pytest.raises(ValueError, match="orbax"):
-        tckpt.latest_step(ckpt)
-    with pytest.raises(ValueError, match="orbax"):
+    other = UpscalerConfig(features=8, depth=2)
+    params = FrameUpscaler(other, device="cpu").model.state_dict()
+    assert tckpt.latest_step(ckpt) == 4
+    with pytest.raises(ValueError, match=r"orbax[\s\S]*stem\.weight"):
         tckpt.restore_state(ckpt, params)
     with pytest.raises(ValueError, match="orbax"):
-        tckpt.save_state(ckpt, 5, params, {})
+        FrameUpscaler(other, device="cpu", checkpoint_dir=ckpt)
+
+    truncated = str(tmp_path / "truncated")
+    shutil.copytree(ckpt, truncated)
+    data = [os.path.join(d, f) for d, _, files in
+            os.walk(os.path.join(truncated, "4", "params")) for f in files
+            if os.path.basename(d) == "d"]
+    biggest = max(data, key=os.path.getsize)
+    with open(biggest, "r+b") as fh:
+        fh.truncate(os.path.getsize(biggest) // 2)
+    tiny = FrameUpscaler(TINY, device="cpu").model.state_dict()
+    assert tckpt.latest_step(truncated) == 4
     with pytest.raises(ValueError, match="orbax"):
-        FrameUpscaler(TINY, device="cpu", checkpoint_dir=ckpt)
-    assert sorted(os.listdir(ckpt)) == ["4"]
+        tckpt.restore_state(truncated, tiny)
+    with pytest.raises(ValueError, match="orbax"):
+        FrameUpscaler(TINY, device="cpu", checkpoint_dir=truncated)
+
+    assert not tckpt.save_state(ckpt, 4, tiny, {})
+    assert tckpt.save_state(ckpt, 5, tiny, {})
+    assert sorted(os.listdir(ckpt)) == ["4", "5"]
 
 
 def test_foreign_step_directory_raises(tmp_path):

@@ -27,7 +27,7 @@ from downloader_tpu_torch.compute.models.upscaler import UpscalerConfig
 from downloader_tpu_torch.compute.pipeline import FrameUpscaler
 from downloader_tpu_torch.compute.train import make_optimizer
 from downloader_tpu_torch.compute.video import Y4MHeader, Y4MReader, Y4MWriter
-from downloader_tpu_torch.compute.weights import from_flax
+from downloader_tpu_torch.compute.weights import from_flax, to_flax
 
 
 def _y4m(width, height, frames, colorspace="420jpeg", seed=0) -> bytes:
@@ -174,22 +174,37 @@ def test_train_tracks_reference_train_from_the_same_init(e2e):
 
 
 def test_orbax_directory_of_the_reference_trainer_is_refused(e2e):
-    """The reference trainer's orbax directory raises ValueError in every
-    reader of the port; no reader starts from fresh weights instead."""
+    """The reference trainer's orbax directory: the port reads its latest
+    step as the JAX package restores it, so a reader of the same model
+    starts from it, never from fresh weights; every reader of a model of
+    another geometry refuses it with a ValueError naming orbax, and
+    writes nothing."""
     orbax_dir = e2e["orbax_dir"]
     assert jckpt.latest_step(orbax_dir) == 6
+    assert tckpt.latest_step(orbax_dir) == 6
+    tcfg = UpscalerConfig(features=16, depth=2)
+    like = FrameUpscaler(tcfg, device="cpu").model.state_dict()
+    step, params, _ = tckpt.restore_state(orbax_dir, like)
+    template = to_flax(params, tcfg)
+    _, jparams, _ = jckpt.restore_state(orbax_dir, template,
+                                        optax.adam(1e-3).init(template))
+    assert step == 6
+    want = from_flax(jax.tree_util.tree_map(np.asarray, jparams), tcfg)
+    assert all(torch.equal(params[k], want[k]) for k in want)
+
     paths = ttrainer.discover_media(e2e["media"])
     with pytest.raises(ValueError, match="orbax"):
         ttrainer.train(paths, ttrainer.TrainerSettings(
-            checkpoint_dir=orbax_dir, **E2E), device="cpu")
+            checkpoint_dir=orbax_dir, **dict(E2E, features=8)), device="cpu")
     with pytest.raises(ValueError, match="orbax"):
-        FrameUpscaler(UpscalerConfig(features=16, depth=2), device="cpu",
+        FrameUpscaler(UpscalerConfig(features=8, depth=2), device="cpu",
                       checkpoint_dir=orbax_dir)
-    with pytest.raises(ValueError, match="orbax"):
+    with pytest.raises(ValueError, match="orbax"):  # the CLI's UpscalerConfig()
         cli_main(["upscale", os.path.join(e2e["media"], "a.y4m"),
                   os.path.join(e2e["media"], "out.y4m"), "--device", "cpu",
                   "--checkpoint-dir", orbax_dir])
     assert not os.path.exists(os.path.join(e2e["media"], "out.y4m"))
+    assert tckpt.latest_step(orbax_dir) == 6
 
 
 # -- the port's own loop ------------------------------------------------
