@@ -1482,10 +1482,12 @@ def _train(args) -> int:
         depth=args.depth,
     )
     summary = train(paths, settings, log=print, device=args.device)
+    host = ", ".join(f"{hop} {seconds:.3f}"
+                     for hop, seconds in summary["host_s"].items())
     print(
         f"trained to step {summary['final_step']} "
         f"(loss {summary['final_loss']:.6f}, batch {summary['batch']}, "
-        f"devices {summary['devices']})"
+        f"devices {summary['devices']}; host s: {host})"
     )
     return 0
 

@@ -1,7 +1,9 @@
 """Double-buffered host↔device transfer queue + per-hop billing.
 
-A copy of ``downloader_tpu.compute.parallel.transfer`` (that package's
-``__init__`` imports JAX, so the port keeps its own).
+Held from ``downloader_tpu.compute.parallel.transfer`` (that package's
+``__init__`` imports JAX, so the port keeps its own); the port's
+``HopSink`` names its layer and ``timed_hop`` also marks the profiler's
+timeline, which the reference's does not.
 
 The upscale step is three hops, not one: ``h2d`` (stage the planes onto
 the card), ``compute`` (the model step itself), ``d2h`` (gather display
@@ -20,10 +22,17 @@ the numbers are honest on an async-dispatch backend —
 - ``d2h``: wall time of the host gather after the result is ready
   (mostly prefetched by the async copy — that's the point).
 
+The engine and the trainer bill more hops of their host threads the
+same way (``compute/pipeline.py``, ``compute/trainer.py``).
+
 ``HopSink`` carries the billing target as thread-local state so a
 worker thread deep inside ``engine.upscale_to`` can bill the current
 job's HopLedger without threading a parameter through the decoder
-stack.
+stack.  ``timed_hop`` is the one host span of the port's compute plane:
+while a torch profiler records, the block is the range
+``host.<layer>.<hop>`` on the profiler's clock, beside the device's
+operations; while a target is bound, the block's wall time is noted;
+with neither, it reads no clock and opens no range.
 """
 
 from __future__ import annotations
@@ -34,11 +43,14 @@ import time
 from collections import deque
 from typing import Callable, Iterator, Optional
 
+import torch
+
 Sink = Callable[[str, int, float], None]
 
 
 class HopSink:
-    """Thread-local hop billing target.
+    """Thread-local hop billing target of one layer (``"engine"``,
+    ``"trainer"``).
 
     ``bound(note_hop)`` installs a sink for the current thread;
     ``note`` forwards to it (or drops the sample when unbound, so the
@@ -46,7 +58,8 @@ class HopSink:
     direct calls).
     """
 
-    def __init__(self) -> None:
+    def __init__(self, layer: str) -> None:
+        self.layer = layer
         self._local = threading.local()
 
     @contextlib.contextmanager
@@ -58,23 +71,58 @@ class HopSink:
         finally:
             self._local.sink = prev
 
+    def is_bound(self) -> bool:
+        """Whether a sink is bound on this thread."""
+        return getattr(self._local, "sink", None) is not None
+
     def note(self, hop: str, nbytes: int, seconds: float) -> None:
         sink = getattr(self._local, "sink", None)
         if sink is not None:
             sink(hop, nbytes, seconds)
 
 
+class Billed:
+    """The bytes a :func:`timed_hop` block bills; a block that learns its
+    bytes only as it runs (a read, a synchronous compute) sets them."""
+
+    __slots__ = ("nbytes",)
+
+    def __init__(self, nbytes: int) -> None:
+        self.nbytes = nbytes
+
+
 @contextlib.contextmanager
-def timed_hop(sink: Optional[HopSink], hop: str, nbytes: int):
-    """Bill ``hop`` with the wall time of the enclosed block."""
-    if sink is None:
-        yield
+def timed_hop(sink: Optional[HopSink], hop: str, nbytes: int = 0):
+    """Bill ``hop`` with the wall time of the enclosed block, and mark the
+    block on the profiler's timeline as ``host.<layer>.<hop>``.  Yields
+    the :class:`Billed` bytes."""
+    billed = Billed(nbytes)
+    note = getattr(sink._local, "sink", None) if sink is not None else None
+    # the profiler's own flag: record_function costs ~10 us even with no
+    # profiler running, this check a tenth of a microsecond
+    profiling = sink is not None and torch.autograd._profiler_enabled()
+    if note is None and not profiling:
+        yield billed
         return
     t0 = time.monotonic()
-    try:
-        yield
-    finally:
-        sink.note(hop, nbytes, time.monotonic() - t0)
+    with (torch.profiler.record_function(f"host.{sink.layer}.{hop}")
+          if profiling else contextlib.nullcontext()):
+        try:
+            yield billed
+        finally:
+            if note is not None:
+                note(hop, billed.nbytes, time.monotonic() - t0)
+
+
+def timed_next(sink: Optional[HopSink], hop: str, items: Iterator):
+    """``next(items, None)`` billed as ``hop`` with the bytes of the tuple
+    of arrays it returns; the call that finds the end is billed too, with
+    no bytes (it may wait on a source that is closing)."""
+    with timed_hop(sink, hop) as billed:
+        item = next(items, None)
+        if item is not None:
+            billed.nbytes = sum(a.nbytes for a in item)
+    return item
 
 
 class TransferQueue:

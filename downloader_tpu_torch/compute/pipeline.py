@@ -50,6 +50,15 @@ host allocator hands a freed pinned block out again only after the
 copies recorded on it have completed, and every buffer of a batch is
 held by its handle until :meth:`_fetch`, so a pinned buffer is never
 reused while its batch is in flight.
+
+Hops (``parallel/transfer.py``): the thread that runs :meth:`upscale_to`
+bills each batch's ``read`` (the source's frames, parsed and stacked),
+``h2d``, ``launch`` (on CUDA: the model's launches on every shard, the
+output buffers, the d2h enqueue and the events), ``compute`` (the wait on
+the card; on the CPU, the synchronous model step), ``d2h`` and ``write``
+(the frames into the sink) into :attr:`FrameUpscaler.hop_sink`, and, while
+a sink is bound, ``device``: the card's seconds for the batch, the
+longest shard's, from timing events around its compute.
 """
 
 from __future__ import annotations
@@ -58,7 +67,6 @@ import contextlib
 import copy
 import dataclasses
 import threading
-import time
 from typing import (Dict, Iterable, Iterator, List, Mapping, Optional,
                     Sequence, Tuple)
 
@@ -80,7 +88,7 @@ from .ops.pixel_shuffle import quantize_u8
 from .ops.s2d_head import s2d_head
 from .parallel.chooser import Decision, compile_step
 from .parallel.mesh import MeshPlan
-from .parallel.transfer import HopSink, TransferQueue, timed_hop
+from .parallel.transfer import HopSink, TransferQueue, timed_hop, timed_next
 from .video import Y4MReader, Y4MWriter
 
 # -- spatial tiling, as the reference decides it ------------------------
@@ -195,6 +203,9 @@ class _InFlight:
     copied: List[torch.cuda.Event]
     keep: List[torch.Tensor]
     n: int
+    # per shard, the timing event before its compute (only while a hop
+    # sink is bound; ``computed`` is then timing-enabled too)
+    started: List[torch.cuda.Event] = dataclasses.field(default_factory=list)
 
 
 class FrameUpscaler:
@@ -263,7 +274,7 @@ class FrameUpscaler:
         # devices (the engine places its shards), jit on one
         self.compile_decisions: Dict[Tuple[int, int], Decision] = {}
         # per-job hop billing target (see parallel/transfer.py)
-        self.hop_sink = HopSink()
+        self.hop_sink = HopSink("engine")
 
     def batch_for(self, height: int, width: int) -> int:
         """Resolution-aware dispatch size: the configured batch, capped
@@ -414,13 +425,12 @@ class FrameUpscaler:
                 if total > n:
                     dev = [torch.cat([t, t.new_zeros((total - n, *t.shape[1:]))])
                            for t in dev]
-            t0 = time.monotonic()
-            shards = [self._core(*(t[i * rows:(i + 1) * rows] for t in dev),
-                                 sub_h, sub_w) for i in range(self.n_devices)]
-            out = tuple(torch.cat(parts) if len(parts) > 1 else parts[0]
-                        for parts in zip(*shards))
-            self.hop_sink.note("compute", sum(int(t.numel()) for t in out),
-                               time.monotonic() - t0)
+            with timed_hop(self.hop_sink, "compute") as billed:
+                shards = [self._core(*(t[i * rows:(i + 1) * rows] for t in dev),
+                                     sub_h, sub_w) for i in range(self.n_devices)]
+                out = tuple(torch.cat(parts) if len(parts) > 1 else parts[0]
+                            for parts in zip(*shards))
+                billed.nbytes = sum(int(t.numel()) for t in out)
             return _InFlight(out, [], [], [], n)
         with timed_hop(self.hop_sink, "h2d", nbytes):
             pinned = []
@@ -436,36 +446,47 @@ class FrameUpscaler:
                 with torch.cuda.device(device):
                     dev.append([buf[i * rows:(i + 1) * rows].to(device, non_blocking=True)
                                 for buf in pinned])
+        timed = self.hop_sink.is_bound()
         handle = _InFlight(None, [], [], pinned, n)
-        for i, (device, planes_i) in enumerate(zip(self.devices, dev)):
-            with torch.cuda.device(device):
-                out = self._core(*planes_i, sub_h, sub_w)
-                computed = torch.cuda.Event()
-                computed.record()
-                if handle.outputs is None:
-                    handle.outputs = tuple(
-                        torch.empty((total, *t.shape[1:]), dtype=torch.uint8,
-                                    pin_memory=True) for t in out)
-                for dst, src in zip(handle.outputs, out):
-                    dst[i * rows:(i + 1) * rows].copy_(src, non_blocking=True)
-                copied = torch.cuda.Event()
-                copied.record()
-            handle.computed.append(computed)
-            handle.copied.append(copied)
-            handle.keep.extend([*planes_i, *out])
+        with timed_hop(self.hop_sink, "launch", nbytes):
+            for i, (device, planes_i) in enumerate(zip(self.devices, dev)):
+                with torch.cuda.device(device):
+                    if timed:
+                        started = torch.cuda.Event(enable_timing=True)
+                        started.record()
+                        handle.started.append(started)
+                    out = self._core(*planes_i, sub_h, sub_w)
+                    computed = torch.cuda.Event(enable_timing=timed)
+                    computed.record()
+                    if handle.outputs is None:
+                        handle.outputs = tuple(
+                            torch.empty((total, *t.shape[1:]), dtype=torch.uint8,
+                                        pin_memory=True) for t in out)
+                    for dst, src in zip(handle.outputs, out):
+                        dst[i * rows:(i + 1) * rows].copy_(src, non_blocking=True)
+                    copied = torch.cuda.Event()
+                    copied.record()
+                handle.computed.append(computed)
+                handle.copied.append(copied)
+                handle.keep.extend([*planes_i, *out])
         return handle
 
     def _fetch(self, handle: _InFlight) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Materialize one dispatched batch, billing ``compute`` as the
-        wait for every shard's compute event and ``d2h`` as the wait for
-        the rest of the copies (mostly done by then: they started at
-        dispatch); on the CPU ``d2h`` is the conversion to numpy.  The
-        padding is dropped."""
+        wait for every shard's compute event, ``device`` as the longest
+        shard's compute on its card (timed while a sink was bound at
+        dispatch) and ``d2h`` as the wait for the rest of the copies
+        (mostly done by then: they started at dispatch); on the CPU
+        ``d2h`` is the conversion to numpy.  The padding is dropped."""
         nbytes = sum(int(t.numel()) for t in handle.outputs)
         if handle.computed:  # on the CPU compute was billed at dispatch
             with timed_hop(self.hop_sink, "compute", nbytes):
                 for event in handle.computed:
                     event.synchronize()
+            if handle.started:
+                self.hop_sink.note("device", nbytes, max(
+                    start.elapsed_time(end)
+                    for start, end in zip(handle.started, handle.computed)) / 1e3)
         with timed_hop(self.hop_sink, "d2h", nbytes):
             for event in handle.copied:
                 event.synchronize()
@@ -524,15 +545,17 @@ class FrameUpscaler:
         def write_out(result) -> None:
             nonlocal frames
             y2, cb2, cr2 = result
-            for i in range(y2.shape[0]):
-                writer.write_frame(y2[i], cb2[i], cr2[i])
+            with timed_hop(self.hop_sink, "write",
+                           y2.nbytes + cb2.nbytes + cr2.nbytes):
+                for i in range(y2.shape[0]):
+                    writer.write_frame(y2[i], cb2[i], cr2[i])
             frames += y2.shape[0]
 
         queue = TransferQueue(self._dispatch, self._fetch,
                               depth=max(1, depth))
-        batch = self.batch_for(hdr.height, hdr.width)
-        for y, cb, cr in _batched(iter(reader), batch):
-            for result in queue.submit(y, cb, cr, sub_h, sub_w):
+        batches = _batched(iter(reader), self.batch_for(hdr.height, hdr.width))
+        while (planes := timed_next(self.hop_sink, "read", batches)) is not None:
+            for result in queue.submit(*planes, sub_h, sub_w):
                 write_out(result)
         for result in queue.drain():
             write_out(result)
@@ -564,22 +587,3 @@ def upscaler_flops_per_frame(config: UpscalerConfig, height: int, width: int) ->
     body = (config.depth - 1) * 2 * pixels * 3 * 3 * f * f
     head = 2 * pixels * 3 * 3 * f * (config.channels * config.scale**2)
     return stem + body + head
-
-
-# dense bf16 tensor-core peak TFLOP/s per card (no sparsity), by a
-# substring of ``torch.cuda.get_device_name``; first match wins (the SXM
-# H100 reports no form factor in its name).  NVIDIA's data sheets.
-_GPU_PEAKS = [
-    ("H100 PCIe", 756.0),
-    ("H200", 989.0),
-    ("H100", 989.0),
-]
-
-
-def device_peak_tflops(device_name: str) -> Optional[float]:
-    """The card's dense bf16 peak in TFLOP/s, or None for a device this
-    table does not know (the CPU among them)."""
-    for tag, peak in _GPU_PEAKS:
-        if tag in device_name:
-            return peak
-    return None

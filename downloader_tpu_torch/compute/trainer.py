@@ -24,6 +24,13 @@ part in a save and rank 0 writes it.  ``train()`` on CUDA with more than
 one visible card and no group starts that group itself, one worker per
 card (NCCL), so the ``train`` CLI adopts every card, as the
 reference's does.
+
+Hops (``parallel/transfer.py``): the loop bills its host thread into
+:data:`hop_sink` — per crop ``read`` (the Y4M reader yielding a frame)
+and ``to_rgb``; per step ``downsample`` (stacking the crops, the box
+downsample), ``h2d`` and ``launch`` (the step's call, which returns
+before the card finishes on CUDA); ``loss_read`` at log steps (a wait on
+the card).  ``train()`` sums them into its summary's ``host_s``.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
+from collections import defaultdict
 from typing import Callable, Iterator, List, Optional, Sequence
 
 import numpy as np
@@ -41,6 +49,7 @@ from .checkpoint import load_optimizer_state, restore_state, save_state
 from .models.upscaler import Upscaler, UpscalerConfig
 from .parallel.group import run_group
 from .parallel.mesh import make_mesh, shard_batch
+from .parallel.transfer import HopSink, timed_hop, timed_next
 from .train import compile_train_step
 from .video import Y4MReader
 
@@ -54,6 +63,10 @@ _YCC2RGB = np.array(
     ],
     dtype=np.float32,
 )
+
+
+# the trainer's hop billing target (see parallel/transfer.py)
+hop_sink = HopSink("trainer")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,8 +115,10 @@ def hr_crop_stream(paths: Sequence[str], crop: int,
                         f"{path}: {reader.header.width}x"
                         f"{reader.header.height} smaller than crop {crop}"
                     )
-                for y, cb, cr in reader:
-                    rgb = _frame_to_rgb(y, cb, cr, sub_h, sub_w)
+                frames = iter(reader)
+                while (frame := timed_next(hop_sink, "read", frames)) is not None:
+                    with timed_hop(hop_sink, "to_rgb", sum(p.nbytes for p in frame)):
+                        rgb = _frame_to_rgb(*frame, sub_h, sub_w)
                     top = int(rng.integers(0, rgb.shape[0] - crop + 1))
                     left = int(rng.integers(0, rgb.shape[1] - crop + 1))
                     yield rgb[top:top + crop, left:left + crop]
@@ -210,29 +225,43 @@ def train(paths: Sequence[str], settings: TrainerSettings = TrainerSettings(),
                       state.optimizer.state_dict(), plan=plan):
             emit(f"checkpoint saved at step {step}")
 
+    # the host's seconds per hop, for the summary
+    host_s: dict = defaultdict(float)
+
+    def note(hop: str, _nbytes: int, seconds: float) -> None:
+        host_s[hop] += seconds
+
     last_loss = float("nan")
     loss = None
     started = time.monotonic()
     step = start_step
-    for step in range(start_step + 1, start_step + settings.steps + 1):
-        hr = np.stack([next(crops) for _ in range(batch)])
-        lr = box_downsample(hr, scale).astype(np.float32)
-        if plan is not None:
-            lr_dev, hr_dev = shard_batch(plan, (lr, hr))
-        else:
-            lr_dev, hr_dev = _to_device(lr, dev), _to_device(hr, dev)
-        loss = train_step(state, lr_dev, hr_dev)
-        if step % settings.log_every == 0 or step == start_step + 1:
-            last_loss = float(loss)
-            rate = (step - start_step) / (time.monotonic() - started)
-            # signals live in [0,1], so PSNR = -10 log10(MSE) directly
-            psnr = -10.0 * np.log10(max(last_loss, 1e-12))
-            emit(f"step {step} loss {last_loss:.6f} "
-                 f"psnr {psnr:.2f}dB ({rate:.1f} steps/s)")
-        if settings.checkpoint_dir and step % settings.save_every == 0:
-            save(step)
-    if loss is not None:
-        last_loss = float(loss)
+    with hop_sink.bound(note):
+        for step in range(start_step + 1, start_step + settings.steps + 1):
+            picked = [next(crops) for _ in range(batch)]
+            with timed_hop(hop_sink, "downsample") as billed:
+                hr = np.stack(picked)
+                lr = box_downsample(hr, scale).astype(np.float32)
+                billed.nbytes = hr.nbytes + lr.nbytes
+            with timed_hop(hop_sink, "h2d", billed.nbytes):
+                if plan is not None:
+                    lr_dev, hr_dev = shard_batch(plan, (lr, hr))
+                else:
+                    lr_dev, hr_dev = _to_device(lr, dev), _to_device(hr, dev)
+            with timed_hop(hop_sink, "launch", billed.nbytes):
+                loss = train_step(state, lr_dev, hr_dev)
+            if step % settings.log_every == 0 or step == start_step + 1:
+                with timed_hop(hop_sink, "loss_read", 4):
+                    last_loss = float(loss)
+                rate = (step - start_step) / (time.monotonic() - started)
+                # signals live in [0,1], so PSNR = -10 log10(MSE) directly
+                psnr = -10.0 * np.log10(max(last_loss, 1e-12))
+                emit(f"step {step} loss {last_loss:.6f} "
+                     f"psnr {psnr:.2f}dB ({rate:.1f} steps/s)")
+            if settings.checkpoint_dir and step % settings.save_every == 0:
+                save(step)
+        if loss is not None:
+            with timed_hop(hop_sink, "loss_read", 4):
+                last_loss = float(loss)
 
     if settings.checkpoint_dir and settings.steps:
         save(step)  # a no-op when the loop just saved this step
@@ -243,6 +272,7 @@ def train(paths: Sequence[str], settings: TrainerSettings = TrainerSettings(),
         "batch": batch,
         "devices": plan.size if plan is not None else 1,
         "mesh": plan.shape if plan is not None else None,
+        "host_s": dict(host_s),
     }
 
 

@@ -1,0 +1,228 @@
+"""The port's hop billing (``compute/parallel/transfer.py``) on the
+engine's and the trainer's host threads, on the CPU but where marked.
+
+``timed_hop`` notes a hop while a sink is bound on the thread and marks
+it on the torch profiler's timeline as ``host.<layer>.<hop>`` while a
+profiler records; with neither it reads no clock.  The engine bills
+``read``, ``h2d``, ``compute``, ``d2h`` and ``write`` per batch (on CUDA
+``launch`` and ``device`` too); the trainer bills ``read`` and
+``to_rgb`` per crop, ``downsample``, ``h2d`` and ``launch`` per step and
+``loss_read`` at log steps, and sums them into its summary's ``host_s``.
+"""
+
+import io
+from collections import Counter
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from downloader_tpu_torch.cli import main as cli_main
+from downloader_tpu_torch.compute import trainer
+from downloader_tpu_torch.compute.models.upscaler import UpscalerConfig
+from downloader_tpu_torch.compute.parallel import transfer
+from downloader_tpu_torch.compute.parallel.transfer import (
+    HopSink,
+    timed_hop,
+    timed_next,
+)
+from downloader_tpu_torch.compute.pipeline import FrameUpscaler
+from downloader_tpu_torch.compute.video import Y4MHeader, Y4MWriter
+
+TINY = UpscalerConfig(features=8, depth=2)
+ENGINE_HOPS = ("read", "h2d", "launch", "compute", "d2h", "write")
+TRAINER_HOPS = {"read", "to_rgb", "downsample", "h2d", "launch", "loss_read"}
+
+
+def _clip(width, height, frames, seed=0) -> bytes:
+    """A seeded 4:2:0 Y4M stream."""
+    rng = np.random.default_rng(seed)
+    buf = io.BytesIO()
+    writer = Y4MWriter(buf, Y4MHeader(width=width, height=height))
+    for _ in range(frames):
+        writer.write_frame(rng.integers(0, 256, (height, width), np.uint8),
+                           rng.integers(0, 256, (height // 2, width // 2), np.uint8),
+                           rng.integers(0, 256, (height // 2, width // 2), np.uint8))
+    return buf.getvalue()
+
+
+def _ranges(prof, prefix: str) -> Counter:
+    """How often each profiler range named ``prefix...`` was opened."""
+    return Counter(e.name for e in prof.events() if e.name.startswith(prefix))
+
+
+def _cpu_profile():
+    return profile(activities=[ProfilerActivity.CPU])
+
+
+def test_timed_hop_opens_a_range_only_while_a_profiler_records():
+    engine, trainer_sink = HopSink("engine"), HopSink("trainer")
+    with timed_hop(engine, "h2d", 8):
+        pass
+    with _cpu_profile() as prof:
+        with timed_hop(engine, "h2d", 8):
+            pass
+        with timed_hop(trainer_sink, "to_rgb", 8):
+            pass
+        with timed_hop(None, "h2d", 8):
+            pass
+    assert _ranges(prof, "host.") == {"host.engine.h2d": 1, "host.trainer.to_rgb": 1}
+
+
+def test_timed_hop_notes_only_while_bound():
+    sink = HopSink("engine")
+    got = []
+    with _cpu_profile():
+        with timed_hop(sink, "h2d", 8):
+            pass
+    with sink.bound(lambda hop, n, s: got.append((hop, n, s))):
+        assert sink.is_bound()
+        with timed_hop(sink, "h2d", 8):
+            pass
+        with timed_hop(sink, "read") as billed:
+            billed.nbytes = 21
+    assert not sink.is_bound()
+    assert [(hop, n) for hop, n, _ in got] == [("h2d", 8), ("read", 21)]
+    assert all(s >= 0 for _, _, s in got)
+
+
+def test_timed_hop_reads_no_clock_with_neither(monkeypatch):
+    """Unbound and unprofiled, a hop reads no clock and builds no range:
+    both would raise here."""
+    def refuse(*_args):
+        raise AssertionError("timed_hop touched the clock or the profiler")
+
+    monkeypatch.setattr(transfer.time, "monotonic", refuse)
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    sink = HopSink("engine")
+    with timed_hop(sink, "h2d", 8) as billed:
+        billed.nbytes = 9
+    with timed_hop(None, "h2d", 8):
+        pass
+    assert timed_next(sink, "read", iter([(np.zeros(2),)]))[0].shape == (2,)
+
+
+def test_timed_next_bills_the_items_bytes_and_the_end():
+    sink = HopSink("engine")
+    got = []
+    items = iter([(np.zeros(3, np.uint8), np.zeros((2, 2), np.uint16))])
+    with sink.bound(lambda hop, n, s: got.append((hop, n))):
+        first = timed_next(sink, "read", items)
+        assert timed_next(sink, "read", items) is None
+    assert len(first) == 2
+    assert got == [("read", 3 + 8), ("read", 0)]
+
+
+def test_upscale_to_bills_read_and_write_once_per_batch():
+    """Seven frames at batch 3: three batches, the last short; each is
+    read, staged, computed, fetched and written once, and the read that
+    finds the stream's end is billed with no bytes."""
+    engine = FrameUpscaler(TINY, batch=3, device="cpu")
+    got = []
+    with engine.hop_sink.bound(lambda hop, n, s: got.append((hop, n))):
+        assert engine.upscale_to(io.BytesIO(_clip(16, 12, 7)), io.BytesIO()) == 7
+    frame_in, frame_out = 16 * 12 * 3 // 2, 32 * 24 * 3 // 2
+    billed = {hop: [n for h, n in got if h == hop] for hop, _ in got}
+    assert set(billed) == {"read", "h2d", "compute", "d2h", "write"}
+    assert billed["read"] == [3 * frame_in, 3 * frame_in, frame_in, 0]
+    assert billed["write"] == [3 * frame_out, 3 * frame_out, frame_out]
+    for hop in ("h2d", "compute", "d2h"):
+        assert len(billed[hop]) == 3, hop
+
+
+def test_upscale_to_marks_every_hop_on_the_profiler_once_per_batch():
+    engine = FrameUpscaler(TINY, batch=3, device="cpu")
+    with _cpu_profile() as prof:
+        engine.upscale_to(io.BytesIO(_clip(16, 12, 7)), io.BytesIO())
+    assert _ranges(prof, "host.") == {
+        "host.engine.read": 4, "host.engine.h2d": 3, "host.engine.compute": 3,
+        "host.engine.d2h": 3, "host.engine.write": 3}
+
+
+def test_upscale_to_output_is_unchanged_by_billing():
+    engine = FrameUpscaler(TINY, batch=3, device="cpu", seed=4)
+    clip = _clip(16, 12, 5, seed=2)
+    plain, billed = io.BytesIO(), io.BytesIO()
+    engine.upscale_to(io.BytesIO(clip), plain)
+    with _cpu_profile(), engine.hop_sink.bound(lambda *_: None):
+        engine.upscale_to(io.BytesIO(clip), billed)
+    assert billed.getvalue() == plain.getvalue()
+
+
+@pytest.fixture
+def media(tmp_path):
+    path = tmp_path / "clip.y4m"
+    path.write_bytes(_clip(64, 48, 3, seed=1))
+    return path
+
+
+def _settings(**kw):
+    return trainer.TrainerSettings(**dict(dict(steps=3, batch=2, crop=32, log_every=2,
+                                               features=8, depth=2), **kw))
+
+
+def test_train_marks_crops_and_steps_on_the_profiler(media):
+    """Three steps of two crops from a three-frame clip: six crops, read
+    over two passes of the file (the read that finds its end between
+    them), and the loss read at steps 1 and 2 and once at the end."""
+    with _cpu_profile() as prof:
+        trainer.train([str(media)], _settings(), device="cpu")
+    assert _ranges(prof, "host.") == {
+        "host.trainer.read": 7, "host.trainer.to_rgb": 6,
+        "host.trainer.downsample": 3, "host.trainer.h2d": 3,
+        "host.trainer.launch": 3, "host.trainer.loss_read": 3}
+
+
+def test_train_summary_holds_host_seconds_per_hop(media):
+    summary = trainer.train([str(media)], _settings(), device="cpu")
+    assert set(summary["host_s"]) == TRAINER_HOPS
+    assert all(s >= 0 for s in summary["host_s"].values())
+    assert summary["host_s"]["to_rgb"] > 0
+    assert not trainer.hop_sink.is_bound()
+
+
+def test_cli_train_prints_host_seconds(media, capsys):
+    rc = cli_main(["train", "--data", str(media), "--steps", "2", "--batch", "2",
+                   "--crop", "32", "--features", "8", "--depth", "2",
+                   "--device", "cpu"])
+    assert rc == 0
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert last.startswith("trained to step 2 (loss") and "devices 1; host s: " in last
+    assert all(f"{hop} " in last for hop in TRAINER_HOPS)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: launch and device are billed on CUDA only")
+
+
+@pytest.mark.cuda
+def test_launch_and_device_billed_once_per_dispatch_on_the_card(card):
+    """On the card every engine hop is billed once per dispatch, and
+    ``device`` agrees within 2% with CUDA events around ``_core``."""
+    engine = FrameUpscaler()
+    core, timed = engine._core, []
+
+    def timed_core(*args):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = core(*args)
+        end.record()
+        timed.append((start, end))
+        return out
+
+    clip = _clip(1280, 720, 24)
+    engine.upscale_to(io.BytesIO(clip), io.BytesIO())  # warm-up
+    engine._core = timed_core
+    got = []
+    with engine.hop_sink.bound(lambda hop, n, s: got.append((hop, s))):
+        assert engine.upscale_to(io.BytesIO(clip), io.BytesIO()) == 24
+    counts = Counter(hop for hop, _ in got)
+    assert counts == {"read": 4, "h2d": 3, "launch": 3, "compute": 3, "d2h": 3,
+                      "write": 3, "device": 3}
+    device = sum(s for hop, s in got if hop == "device")
+    events = sum(a.elapsed_time(b) for a, b in timed) / 1e3
+    assert device > 0
+    assert abs(device - events) <= 0.02 * events, (device, events)

@@ -21,7 +21,7 @@ from downloader_tpu_torch.compute.models.upscaler import Upscaler, UpscalerConfi
 from downloader_tpu_torch.compute.overlap_probe import measure_overlap
 from downloader_tpu_torch.compute.parallel import MeshPlan, decision_cache
 from downloader_tpu_torch.compute.parallel.chooser import clear_decisions
-from downloader_tpu_torch.compute.pipeline import FrameUpscaler, device_peak_tflops
+from downloader_tpu_torch.compute.pipeline import FrameUpscaler
 from downloader_tpu_torch.compute.weights import from_flax
 
 CONFIG = UpscalerConfig(features=8, depth=2)
@@ -170,11 +170,3 @@ def test_overlap_probe_alarm_on_the_card():
             break
     assert last["overlap"] >= 0.5, last
     assert last["pipelined_s"] <= last["serial_s"] * 0.85, last
-
-
-def test_device_peak_tflops_holds_gpu_peaks_only():
-    assert device_peak_tflops("NVIDIA H100 80GB HBM3") == 989.0
-    assert device_peak_tflops("NVIDIA H100 PCIe") == 756.0
-    assert device_peak_tflops("NVIDIA H200") == 989.0
-    for name in ("cpu", "TPU v5e", "TPU v5 lite"):
-        assert device_peak_tflops(name) is None

@@ -379,7 +379,8 @@ async def _run_job(orchestrator, broker, uri, job_id):
 async def test_pipeline_end_to_end_with_upscale(tmp_path):
     """http download of a .y4m -> process -> upscale on the port's engine
     -> upload; the staged object is the upscaled stream, and the job's
-    hop ledger holds the engine's three hops."""
+    hop ledger holds the engine's hops, the stream's read and write
+    among them."""
     from downloader_tpu_torch.mq import InMemoryBroker, MemoryQueue
     from downloader_tpu_torch.orchestrator import Orchestrator
     from downloader_tpu_torch.store import InMemoryObjectStore
@@ -408,7 +409,7 @@ async def test_pipeline_end_to_end_with_upscale(tmp_path):
         record = orchestrator.registry.get("up-1")
         assert record.state == "DONE" and record.workload == "UPSCALE"
         hops = record.hops.summary()
-        for hop in ("h2d", "compute", "d2h"):
+        for hop in ("read", "h2d", "compute", "d2h", "write"):
             assert hops[hop]["bytes"] > 0, hops
     finally:
         await orchestrator.shutdown(grace_seconds=5)
