@@ -7,12 +7,15 @@ minimize the reconstruction MSE with the step of :mod:`.train`, saving
 checkpoints (:mod:`.checkpoint`) that ``FrameUpscaler(checkpoint_dir=)``
 and ``upscale --checkpoint-dir`` load.
 
-The data path is the reference's, in numpy and in the same order, so a
-seed yields the same crops byte for byte: every crop converts its whole
-frame to RGB on the host first.  That makes the loop host-bound on real
-media, as the reference's is.  Batches cross to the card through pinned
-buffers with non-blocking copies, and the loss is read back only at log
-steps, so the host never waits for the card in between.
+The data path draws the reference's crops in numpy, with the same
+random draws in the same order, so a seed yields the same crops byte for
+byte.  Where the reference converts each whole frame to RGB and then
+cuts its crop, this one draws the crop first and converts only the
+crop's window, widened to the chroma grid: the conversion is pointwise
+and the chroma upsample nearest-neighbour, so the window gives the same
+floats at a few thousandths of the work.  Batches cross to the card
+through pinned buffers with non-blocking copies, and the loss is read
+back only at log steps, so the host never waits for the card in between.
 
 Devices, as the reference's ``:145-157``: on one device the loop runs
 as above.  Inside a process group of more than one rank (one process
@@ -101,7 +104,10 @@ def hr_crop_stream(paths: Sequence[str], crop: int,
                    rng: np.random.Generator) -> Iterator[np.ndarray]:
     """Endless stream of (crop, crop, 3) float32 RGB crops from Y4M files.
 
-    Files cycle; each decoded frame yields one random crop."""
+    Files cycle; each decoded frame yields one random crop.  The crop's
+    ``top`` and ``left`` are drawn before any conversion, in the JAX
+    package's order and bounds, and only the crop's window, widened to
+    the chroma grid, goes through :func:`_frame_to_rgb`."""
     if not paths:
         raise ValueError("no training media given")
     while True:
@@ -109,19 +115,25 @@ def hr_crop_stream(paths: Sequence[str], crop: int,
             with open(path, "rb") as fh:
                 reader = Y4MReader(fh)
                 sub_h, sub_w = reader.header.subsampling
-                if (reader.header.height < crop
-                        or reader.header.width < crop):
+                height, width = reader.header.height, reader.header.width
+                if height < crop or width < crop:
                     raise ValueError(
-                        f"{path}: {reader.header.width}x"
-                        f"{reader.header.height} smaller than crop {crop}"
+                        f"{path}: {width}x{height} smaller than crop {crop}"
                     )
                 frames = iter(reader)
                 while (frame := timed_next(hop_sink, "read", frames)) is not None:
-                    with timed_hop(hop_sink, "to_rgb", sum(p.nbytes for p in frame)):
-                        rgb = _frame_to_rgb(*frame, sub_h, sub_w)
-                    top = int(rng.integers(0, rgb.shape[0] - crop + 1))
-                    left = int(rng.integers(0, rgb.shape[1] - crop + 1))
-                    yield rgb[top:top + crop, left:left + crop]
+                    y, cb, cr = frame
+                    top = int(rng.integers(0, height - crop + 1))
+                    left = int(rng.integers(0, width - crop + 1))
+                    r0, c0 = top - top % sub_h, left - left % sub_w
+                    r1 = -(-(top + crop) // sub_h) * sub_h
+                    c1 = -(-(left + crop) // sub_w) * sub_w
+                    chroma = (slice(r0 // sub_h, r1 // sub_h),
+                              slice(c0 // sub_w, c1 // sub_w))
+                    window = (y[r0:r1, c0:c1], cb[chroma], cr[chroma])
+                    with timed_hop(hop_sink, "to_rgb", sum(p.nbytes for p in window)):
+                        rgb = _frame_to_rgb(*window, sub_h, sub_w)
+                    yield rgb[top - r0:top - r0 + crop, left - c0:left - c0 + crop]
 
 
 def box_downsample(hr: np.ndarray, scale: int) -> np.ndarray:

@@ -174,6 +174,28 @@ def test_train_marks_crops_and_steps_on_the_profiler(media):
         "host.trainer.launch": 3, "host.trainer.loss_read": 3}
 
 
+def test_to_rgb_bills_the_crops_window_not_the_frame(media):
+    """Each ``to_rgb`` note bills the planes of the crop's window, widened
+    to the 4:2:0 chroma grid, which are fewer bytes than the frame's."""
+    height, width, crop, seed = 48, 64, 31, 9
+    notes = []
+    stream = trainer.hr_crop_stream([str(media)], crop, np.random.default_rng(seed))
+    with trainer.hop_sink.bound(lambda hop, nbytes, _s: notes.append((hop, nbytes))):
+        for _ in range(5):
+            next(stream)
+    draws = np.random.default_rng(seed)
+    want = []
+    for _ in range(5):
+        top = int(draws.integers(0, height - crop + 1))
+        left = int(draws.integers(0, width - crop + 1))
+        rows = -(-(top + crop) // 2) * 2 - (top - top % 2)
+        cols = -(-(left + crop) // 2) * 2 - (left - left % 2)
+        want.append(rows * cols + 2 * (rows // 2) * (cols // 2))
+    got = [nbytes for hop, nbytes in notes if hop == "to_rgb"]
+    assert got == want
+    assert max(got) < height * width + 2 * (height // 2) * (width // 2)
+
+
 def test_train_summary_holds_host_seconds_per_hop(media):
     summary = trainer.train([str(media)], _settings(), device="cpu")
     assert set(summary["host_s"]) == TRAINER_HOPS

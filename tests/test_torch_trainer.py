@@ -70,7 +70,7 @@ def test_discover_media(media_dir, tmp_path):
         ttrainer.discover_media(str(tmp_path))
 
 
-@pytest.mark.parametrize("colorspace", ["420jpeg", "444"])
+@pytest.mark.parametrize("colorspace", ["420jpeg", "422", "444"])
 def test_hr_crop_stream_is_byte_identical_to_reference(tmp_path, colorspace):
     """The same seed and media give the same crops, byte for byte, over
     more crops than the files hold frames (the files cycle)."""
@@ -86,6 +86,44 @@ def test_hr_crop_stream_is_byte_identical_to_reference(tmp_path, colorspace):
         assert got.shape == (32, 32, 3) and got.dtype == want.dtype == np.float32
         assert got.tobytes() == want.tobytes()
         assert 0.0 <= got.min() and got.max() <= 1.0
+
+
+class _Draws:
+    """A stand-in for the crop stream's generator: hands out set draws
+    and records the bounds each was asked for."""
+
+    def __init__(self, draws):
+        self.draws, self.asked = list(draws), []
+
+    def integers(self, low, high):
+        self.asked.append((low, high))
+        return self.draws.pop(0)
+
+
+@pytest.mark.parametrize("colorspace", ["420jpeg", "422", "444"])
+@pytest.mark.parametrize("crop,corners", [
+    (33, ((0, 0), (1, 3), (2, 4), (15, 47))),
+    (32, ((1, 1), (16, 48), (7, 0))),
+    (48, ((0, 0), (0, 17), (0, 32))),
+], ids=["odd-crop", "even-crop", "crop-is-height"])
+def test_hr_crop_stream_converts_only_the_crops_window(tmp_path, colorspace, crop, corners):
+    """Each crop, at odd and even corners up to the frame's far edges,
+    is the whole frame's conversion cut at the drawn corner, byte for
+    byte; the corner is drawn top first, within the frame."""
+    path = tmp_path / "clip.y4m"
+    path.write_bytes(_y4m(80, 48, len(corners), colorspace=colorspace, seed=7))
+    with open(path, "rb") as fh:
+        reader = Y4MReader(fh)
+        sub = reader.header.subsampling
+        frames = list(reader)
+    draws = _Draws([d for corner in corners for d in corner])
+    stream = ttrainer.hr_crop_stream([str(path)], crop, draws)
+    for (top, left), frame in zip(corners, frames):
+        got = next(stream)
+        want = ttrainer._frame_to_rgb(*frame, *sub)[top:top + crop, left:left + crop]
+        assert got.shape == (crop, crop, 3) and got.dtype == np.float32
+        assert got.tobytes() == want.tobytes()
+    assert draws.asked == [(0, 48 - crop + 1), (0, 80 - crop + 1)] * len(corners)
 
 
 def test_crop_larger_than_frame_rejected(media_dir):
