@@ -43,22 +43,33 @@ own size.
 
 Transfers (on CUDA): the planes are copied into one pinned host buffer
 each and every shard's rows are uploaded from it with ``non_blocking``
-under its device; each shard's d2h copies into its rows of one pinned
-output buffer per plane are queued right behind its compute at
-dispatch, with a CUDA event after each.  PyTorch's caching
-host allocator hands a freed pinned block out again only after the
-copies recorded on it have completed, and every buffer of a batch is
-held by its handle until :meth:`_fetch`, so a pinned buffer is never
-reused while its batch is in flight.
+under its device, on the compute stream.  Each distinct device has a
+download stream of its own: at dispatch it waits on the shard's compute
+event and copies the shard's output into its rows of one pinned output
+buffer per plane, then records a copy event.  The next batch's kernels
+thus run on the compute stream while this batch's output crosses PCIe on
+the card's other copy engine.  Every tensor either stream touches is
+held by the batch's handle until :meth:`_fetch` has synchronised both
+events, and each output the download stream reads is recorded on it, so
+no block is handed out again while a stream may still use it; PyTorch's
+caching host allocator hands a freed pinned block out again only after
+the copies recorded on it have completed.
+
+Output (:meth:`upscale_to`): each frame's planes go to the sink as 1-D
+byte views of the pinned output's rows, with no host copy.  A view holds
+its pinned buffer alive, and the engine takes a fresh buffer for every
+batch, so a sink may keep what it is given: no later batch writes into
+it (it holds pinned host memory while it does).
 
 Hops (``parallel/transfer.py``): the thread that runs :meth:`upscale_to`
 bills each batch's ``read`` (the source's frames, parsed and stacked),
 ``h2d``, ``launch`` (on CUDA: the model's launches on every shard, the
 output buffers, the d2h enqueue and the events), ``compute`` (the wait on
-the card; on the CPU, the synchronous model step), ``d2h`` and ``write``
-(the frames into the sink) into :attr:`FrameUpscaler.hop_sink`, and, while
-a sink is bound, ``device``: the card's seconds for the batch, the
-longest shard's, from timing events around its compute.
+the card; on the CPU, the synchronous model step), ``d2h`` (the wait on
+the download streams) and ``write`` (the sink's own writes of the views)
+into :attr:`FrameUpscaler.hop_sink`, and, while a sink is bound,
+``device``: the card's seconds for the batch, the longest shard's, from
+timing events around its compute.
 """
 
 from __future__ import annotations
@@ -89,7 +100,7 @@ from .ops.s2d_head import s2d_head
 from .parallel.chooser import Decision, compile_step
 from .parallel.mesh import MeshPlan
 from .parallel.transfer import HopSink, TransferQueue, timed_hop, timed_next
-from .video import Y4MReader, Y4MWriter
+from .video import Y4MError, Y4MHeader, Y4MReader, Y4MWriter
 
 # -- spatial tiling, as the reference decides it ------------------------
 #
@@ -264,6 +275,10 @@ class FrameUpscaler:
         self._replicas = {dev: copy.deepcopy(model).to(dev)
                           for dev in distinct[1:]}
         self._replicas[self.device] = model.to(self.device)
+        # one download stream per distinct card: the d2h copies leave the
+        # compute stream, so the next batch's kernels overlap them
+        self._download = {dev: torch.cuda.Stream(dev)
+                          for dev in distinct if dev.type == "cuda"}
         self.model = self._replicas[self.device]
         self.n_devices = len(devices)
         # static batch: a multiple of the device count, so every device
@@ -405,9 +420,9 @@ class FrameUpscaler:
                   sub_h: int, sub_w: int) -> _InFlight:
         """Stage and launch one batch WITHOUT waiting for the devices: on
         several devices zero-padded to the static batch and cut into one
-        equal shard per device, each shard's d2h copy queued behind its
-        compute into its rows of one pinned output.  :meth:`_fetch`
-        materializes the result."""
+        equal shard per device, each shard's d2h copy queued on its
+        device's download stream behind its compute, into its rows of
+        one pinned output.  :meth:`_fetch` materializes the result."""
         self._decide(sub_h, sub_w)
         planes = (y, cb, cr)
         n = y.shape[0]
@@ -462,10 +477,15 @@ class FrameUpscaler:
                         handle.outputs = tuple(
                             torch.empty((total, *t.shape[1:]), dtype=torch.uint8,
                                         pin_memory=True) for t in out)
-                    for dst, src in zip(handle.outputs, out):
-                        dst[i * rows:(i + 1) * rows].copy_(src, non_blocking=True)
-                    copied = torch.cuda.Event()
-                    copied.record()
+                    download = self._download[device]
+                    download.wait_event(computed)
+                    with torch.cuda.stream(download):
+                        for dst, src in zip(handle.outputs, out):
+                            dst[i * rows:(i + 1) * rows].copy_(src, non_blocking=True)
+                            # freed on the compute stream, read here
+                            src.record_stream(download)
+                        copied = torch.cuda.Event()
+                        copied.record()
                 handle.computed.append(computed)
                 handle.copied.append(copied)
                 handle.keep.extend([*planes_i, *out])
@@ -475,9 +495,10 @@ class FrameUpscaler:
         """Materialize one dispatched batch, billing ``compute`` as the
         wait for every shard's compute event, ``device`` as the longest
         shard's compute on its card (timed while a sink was bound at
-        dispatch) and ``d2h`` as the wait for the rest of the copies
-        (mostly done by then: they started at dispatch); on the CPU
-        ``d2h`` is the conversion to numpy.  The padding is dropped."""
+        dispatch) and ``d2h`` as the wait for the download streams'
+        copies (mostly done by then: they ran beside the next batch's
+        compute); on the CPU ``d2h`` is the conversion to numpy.  The
+        padding is dropped."""
         nbytes = sum(int(t.numel()) for t in handle.outputs)
         if handle.computed:  # on the CPU compute was billed at dispatch
             with timed_hop(self.hop_sink, "compute", nbytes):
@@ -538,7 +559,7 @@ class FrameUpscaler:
         while batch i still computes and batch i-1's d2h drains."""
         reader = Y4MReader(src_fh)
         hdr = reader.header
-        writer = Y4MWriter(dst_fh, hdr.scaled(self.config.scale))
+        out_hdr = Y4MWriter(dst_fh, hdr.scaled(self.config.scale)).header
         sub_h, sub_w = hdr.subsampling
         frames = 0
 
@@ -548,7 +569,7 @@ class FrameUpscaler:
             with timed_hop(self.hop_sink, "write",
                            y2.nbytes + cb2.nbytes + cr2.nbytes):
                 for i in range(y2.shape[0]):
-                    writer.write_frame(y2[i], cb2[i], cr2[i])
+                    _write_frame(dst_fh, out_hdr, y2[i], cb2[i], cr2[i])
             frames += y2.shape[0]
 
         queue = TransferQueue(self._dispatch, self._fetch,
@@ -560,6 +581,24 @@ class FrameUpscaler:
         for result in queue.drain():
             write_out(result)
         return frames
+
+
+def _write_frame(fh, hdr: Y4MHeader, y: np.ndarray, cb: np.ndarray,
+                 cr: np.ndarray) -> None:
+    """``Y4MWriter.write_frame``'s check and record, with each plane
+    handed to ``fh`` as a 1-D byte view of its rows instead of a copy."""
+    if (
+        y.shape != (hdr.height, hdr.width)
+        or cb.shape != hdr.chroma_shape
+        or cr.shape != hdr.chroma_shape
+    ):
+        raise Y4MError(
+            f"frame planes {y.shape}/{cb.shape}/{cr.shape} do not match "
+            f"header {hdr.width}x{hdr.height} C{hdr.colorspace}"
+        )
+    fh.write(b"FRAME\n")
+    for plane in (y, cb, cr):
+        fh.write(memoryview(np.ascontiguousarray(plane, dtype=np.uint8)).cast("B"))
 
 
 def _batched(

@@ -8,9 +8,14 @@ profiler records; with neither it reads no clock.  The engine bills
 ``launch`` and ``device`` too); the trainer bills ``read`` and
 ``to_rgb`` per crop, ``downsample``, ``h2d`` and ``launch`` per step and
 ``loss_read`` at log steps, and sums them into its summary's ``host_s``.
+
+The engine hands its sink each frame's planes as 1-D byte views of its
+output rows, with no host copy; on the card the d2h copies run on a
+download stream of their own, beside the next batch's compute.
 """
 
 import io
+import json
 from collections import Counter
 
 import numpy as np
@@ -19,7 +24,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from downloader_tpu_torch.cli import main as cli_main
-from downloader_tpu_torch.compute import trainer
+from downloader_tpu_torch.compute import pipeline, trainer
 from downloader_tpu_torch.compute.models.upscaler import UpscalerConfig
 from downloader_tpu_torch.compute.parallel import transfer
 from downloader_tpu_torch.compute.parallel.transfer import (
@@ -28,22 +33,23 @@ from downloader_tpu_torch.compute.parallel.transfer import (
     timed_next,
 )
 from downloader_tpu_torch.compute.pipeline import FrameUpscaler
-from downloader_tpu_torch.compute.video import Y4MHeader, Y4MWriter
+from downloader_tpu_torch.compute.video import Y4MError, Y4MHeader, Y4MReader, Y4MWriter
 
 TINY = UpscalerConfig(features=8, depth=2)
 ENGINE_HOPS = ("read", "h2d", "launch", "compute", "d2h", "write")
 TRAINER_HOPS = {"read", "to_rgb", "downsample", "h2d", "launch", "loss_read"}
 
 
-def _clip(width, height, frames, seed=0) -> bytes:
-    """A seeded 4:2:0 Y4M stream."""
+def _clip(width, height, frames, seed=0, colorspace="420jpeg") -> bytes:
+    """A seeded Y4M stream (4:2:0 unless ``colorspace`` says otherwise)."""
     rng = np.random.default_rng(seed)
     buf = io.BytesIO()
-    writer = Y4MWriter(buf, Y4MHeader(width=width, height=height))
+    hdr = Y4MHeader(width=width, height=height, colorspace=colorspace)
+    writer = Y4MWriter(buf, hdr)
     for _ in range(frames):
         writer.write_frame(rng.integers(0, 256, (height, width), np.uint8),
-                           rng.integers(0, 256, (height // 2, width // 2), np.uint8),
-                           rng.integers(0, 256, (height // 2, width // 2), np.uint8))
+                           rng.integers(0, 256, hdr.chroma_shape, np.uint8),
+                           rng.integers(0, 256, hdr.chroma_shape, np.uint8))
     return buf.getvalue()
 
 
@@ -150,6 +156,110 @@ def test_upscale_to_output_is_unchanged_by_billing():
     assert billed.getvalue() == plain.getvalue()
 
 
+COLORSPACES = ("420jpeg", "422", "444")
+
+
+class _Keeper:
+    """A sink that keeps every object it is given, beside a copy of its
+    bytes taken when it was given."""
+
+    def __init__(self):
+        self.kept = []
+        self.copies = []
+
+    def write(self, data) -> int:
+        self.kept.append(data)
+        self.copies.append(bytes(data))
+        return len(data)
+
+
+def _writers_bytes(engine, clip: bytes) -> bytes:
+    """The stream ``Y4MWriter.write_frame`` makes of the engine's planes,
+    batch by batch as ``upscale_to`` cuts them."""
+    reader = Y4MReader(io.BytesIO(clip))
+    hdr = reader.header
+    out = io.BytesIO()
+    writer = Y4MWriter(out, hdr.scaled(engine.config.scale))
+    for planes in pipeline._batched(iter(reader), engine.batch_for(hdr.height, hdr.width)):
+        y2, cb2, cr2 = engine.upscale_batch(*planes, *hdr.subsampling)
+        for i in range(y2.shape[0]):
+            writer.write_frame(y2[i], cb2[i], cr2[i])
+    return out.getvalue()
+
+
+@pytest.mark.parametrize("colorspace", COLORSPACES)
+def test_upscale_to_writes_the_writers_bytes(colorspace):
+    """Seven frames at batch 3 (the last batch short): the stream written
+    from the views is byte for byte the one ``Y4MWriter`` writes."""
+    engine = FrameUpscaler(TINY, batch=3, device="cpu", seed=5)
+    clip = _clip(16, 12, 7, seed=3, colorspace=colorspace)
+    out = io.BytesIO()
+    assert engine.upscale_to(io.BytesIO(clip), out) == 7
+    assert out.getvalue() == _writers_bytes(engine, clip)
+
+
+@pytest.mark.parametrize("colorspace", COLORSPACES)
+def test_upscale_to_hands_the_sink_one_flat_buffer_per_plane(colorspace):
+    """After the header, each frame is its marker and three 1-D byte
+    buffers whose ``len()`` is the plane's bytes."""
+    engine = FrameUpscaler(TINY, batch=3, device="cpu")
+    sink = _Keeper()
+    engine.upscale_to(io.BytesIO(_clip(16, 12, 7, colorspace=colorspace)), sink)
+    out_hdr = Y4MHeader(width=32, height=24, colorspace=colorspace)
+    ch, cw = out_hdr.chroma_shape
+    assert sink.copies[0] == out_hdr.encode()
+    records = sink.kept[1:]
+    assert len(records) == 7 * 4
+    for f in range(7):
+        marker, *planes = records[4 * f:4 * f + 4]
+        assert bytes(marker) == b"FRAME\n"
+        for data, size in zip(planes, (32 * 24, ch * cw, ch * cw)):
+            view = memoryview(data)
+            assert (view.ndim, view.itemsize, view.nbytes) == (1, 1, size)
+            assert len(data) == size
+
+
+@pytest.mark.parametrize("depth", [1, 3])
+def test_a_sink_may_keep_what_it_is_given(depth):
+    """A sink that keeps every object finds each kept frame unchanged
+    after every later batch has been written."""
+    engine = FrameUpscaler(TINY, batch=2, device="cpu", seed=6)
+    clip = _clip(16, 12, 9, seed=8)
+    sink = _Keeper()
+    engine.upscale_to(io.BytesIO(clip), sink, depth=depth)
+    assert [bytes(data) for data in sink.kept] == sink.copies
+    assert b"".join(sink.kept) == _writers_bytes(engine, clip)
+
+
+@pytest.mark.parametrize("colorspace", ["422", "444"])
+def test_upscale_to_bills_write_once_per_batch_with_the_planes_bytes(colorspace):
+    engine = FrameUpscaler(TINY, batch=3, device="cpu")
+    got = []
+    with engine.hop_sink.bound(lambda hop, n, s: got.append((hop, n))):
+        engine.upscale_to(io.BytesIO(_clip(16, 12, 7, colorspace=colorspace)),
+                          io.BytesIO())
+    ch, cw = Y4MHeader(width=32, height=24, colorspace=colorspace).chroma_shape
+    frame_out = 32 * 24 + 2 * ch * cw
+    assert [n for hop, n in got if hop == "write"] == [
+        3 * frame_out, 3 * frame_out, frame_out]
+
+
+def test_upscale_to_refuses_planes_that_do_not_match_the_header(monkeypatch):
+    """The writer's check holds: planes of another shape raise before
+    any of the frame is written."""
+    engine = FrameUpscaler(TINY, batch=3, device="cpu")
+    fetch = engine._fetch
+
+    def cropped(handle):
+        return tuple(p[:, :-2] for p in fetch(handle))
+
+    monkeypatch.setattr(engine, "_fetch", cropped)
+    sink = _Keeper()
+    with pytest.raises(Y4MError, match="do not match header 32x24"):
+        engine.upscale_to(io.BytesIO(_clip(16, 12, 4)), sink)
+    assert sink.copies == [Y4MHeader(width=32, height=24).encode()]
+
+
 @pytest.fixture
 def media(tmp_path):
     path = tmp_path / "clip.y4m"
@@ -217,7 +327,8 @@ def test_cli_train_prints_host_seconds(media, capsys):
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: launch and device are billed on CUDA only")
+        pytest.skip("needs an NVIDIA GPU: launch, device and the download stream "
+                    "exist on CUDA only")
 
 
 @pytest.mark.cuda
@@ -248,3 +359,72 @@ def test_launch_and_device_billed_once_per_dispatch_on_the_card(card):
     events = sum(a.elapsed_time(b) for a, b in timed) / 1e3
     assert device > 0
     assert abs(device - events) <= 0.02 * events, (device, events)
+
+
+def _serial_bytes(engine, clip: bytes) -> bytes:
+    """The engine's stream as a serial path makes it: each batch padded
+    and cut into shards as ``_dispatch`` does, each shard's ``_core`` on
+    its card and copied back on the current stream before the next one
+    starts, then written by ``Y4MWriter``."""
+    reader = Y4MReader(io.BytesIO(clip))
+    hdr = reader.header
+    out = io.BytesIO()
+    writer = Y4MWriter(out, hdr.scaled(engine.config.scale))
+    eff = engine.batch_for(hdr.height, hdr.width)
+    for planes in pipeline._batched(iter(reader), eff):
+        n = planes[0].shape[0]
+        total = max(n, eff) if engine.n_devices > 1 else n
+        rows = total // engine.n_devices
+        padded = [np.concatenate([a, np.zeros((total - n, *a.shape[1:]), np.uint8)])
+                  for a in planes]
+        shards = []
+        for i, device in enumerate(engine.devices):
+            with torch.cuda.device(device):
+                dev = [torch.from_numpy(a[i * rows:(i + 1) * rows]).to(device)
+                       for a in padded]
+                shards.append([t.cpu() for t in engine._core(*dev, *hdr.subsampling)])
+        y2, cb2, cr2 = (torch.cat(parts).numpy()[:n] for parts in zip(*shards))
+        for i in range(n):
+            writer.write_frame(y2[i], cb2[i], cr2[i])
+    return out.getvalue()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale, width, height", [(4, 960, 540), (2, 1920, 1080)])
+@pytest.mark.parametrize("listed", [1, 2])
+def test_card_stream_is_byte_identical_to_the_serial_path(card, scale, width, height,
+                                                          listed):
+    """17 frames (two batches of 8 and a short one) through ``upscale_to``
+    on one card and on ``cuda:0`` listed ``listed`` times: the same bytes
+    as each shard computed and copied back in turn."""
+    engine = FrameUpscaler(UpscalerConfig(scale=scale), devices=["cuda:0"] * listed)
+    assert len(engine._download) == 1
+    clip = _clip(width, height, 17, seed=scale)
+    out = io.BytesIO()
+    assert engine.upscale_to(io.BytesIO(clip), out) == 17
+    assert out.getvalue() == _serial_bytes(engine, clip)
+
+
+@pytest.mark.cuda
+def test_d2h_runs_on_a_stream_of_its_own_beside_compute(card, tmp_path):
+    """In a profile of a 540p stream at x4, every device-to-host copy runs
+    on another stream than every kernel, and some copy overlaps a
+    kernel."""
+    engine = FrameUpscaler(UpscalerConfig(scale=4))
+    download = engine._download[engine.device]
+    assert download != torch.cuda.current_stream(engine.device)
+    clip = _clip(960, 540, 32)
+    engine.upscale_to(io.BytesIO(clip), io.BytesIO())  # warm-up
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.upscale_to(io.BytesIO(clip), io.BytesIO())
+    trace = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(trace))
+    events = [e for e in json.loads(trace.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "stream" in e.get("args", {})]
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy" and "DtoH" in e["name"]]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    assert copies and kernels
+    assert not ({e["args"]["stream"] for e in copies}
+                & {e["args"]["stream"] for e in kernels})
+    assert any(k["ts"] < c["ts"] + c["dur"] and c["ts"] < k["ts"] + k["dur"]
+               for c in copies for k in kernels)
