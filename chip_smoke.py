@@ -111,8 +111,9 @@ Phases, each failing the run (non-zero exit) on any error:
    ``FrameUpscaler.upscale_to`` on an engine over every visible card and
    on one over the first card listed twice (batch 16: two shards of 8),
    each byte-identical to the one-card engine's stream, the tail
-   launched shards x dispatches times, ``compile_decisions`` ``pjit`` on
-   the twice-listed engine; frames/s of the one-card and the twice-listed
+   launched shards x dispatches times, and each engine's shard count and
+   count of ``_dispatch`` calls printed (the latter checked against the
+   frames over ``batch_for``); frames/s of the one-card and the twice-listed
    engine on a 128-frame stream in turns, beside phase 11's; then a
    one-rank NCCL group in this process where ``compile_train_step`` on a
    1x1 plan takes 3 steps at batch 8, crop 64, against the plain step
@@ -1197,7 +1198,7 @@ def _train_end_to_end(torch, paths, steps: int = 30):
     make = trainer.compile_train_step
 
     def traced_make(*args, **kwargs):
-        step, init, decision = make(*args, **kwargs)
+        step, init, plan = make(*args, **kwargs)
 
         def traced(state, lr, hr):
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -1207,7 +1208,7 @@ def _train_end_to_end(torch, paths, steps: int = 30):
             spans.append((start, end))
             return loss
 
-        return traced, init, decision
+        return traced, init, plan
 
     lines = []
     trainer.compile_train_step = traced_make
@@ -1723,7 +1724,7 @@ def _mesh_train_steps(steps: int, batch: int, crop: int, seed: int) -> dict:
     from downloader_tpu_torch.compute.trainer import box_downsample
 
     plan = make_mesh(model_axis=1)
-    step, init_state, decision = compile_train_step(UpscalerConfig(), mesh=plan)
+    step, init_state, used = compile_train_step(UpscalerConfig(), mesh=plan)
     plain_step, plain_init = make_train_step(UpscalerConfig())
     state, plain = init_state(seed), plain_init(seed)
     rng = np.random.default_rng(seed)
@@ -1747,7 +1748,7 @@ def _mesh_train_steps(steps: int, batch: int, crop: int, seed: int) -> dict:
         torch.cuda.synchronize()
         ms[name].append((time.monotonic() - t0) * 100.0)
     return {"backend": dist.get_backend(), "world": dist.get_world_size(),
-            "plan": plan.shape, "decision": decision.strategy,
+            "plan": used.shape,
             "mesh": mesh_losses, "plain": plain_losses,
             "mesh_ms": min(ms["mesh"]), "plain_ms": min(ms["plain"])}
 
@@ -1783,20 +1784,30 @@ def phase_mesh(torch, launches, work: Path, fps: dict):
                              f"{twice.n_devices} devices")
     for name, engine in (("mesh_every_card", every), ("mesh_card_twice", twice)):
         dispatches = -(-FRAMES // engine.batch_for(HEIGHT, WIDTH))
-        with launches.path(name, {"s2d_tail": engine.n_devices * dispatches}):
-            got = stream(engine, data)
+        calls = []
+        dispatch = engine._dispatch
+
+        def counted(*args, dispatch=dispatch, calls=calls):
+            calls.append(args[0].shape[0])
+            return dispatch(*args)
+
+        engine._dispatch = counted
+        try:
+            with launches.path(name, {"s2d_tail": engine.n_devices * dispatches}):
+                got = stream(engine, data)
+        finally:
+            del engine._dispatch
         if got != want:
             diff = np.frombuffer(got, np.uint8) != np.frombuffer(want, np.uint8)
             raise AssertionError(f"{name}: {int(diff.sum())} bytes differ from "
                                  "the one-card engine's stream")
-        decision = engine.compile_decisions[(2, 2)]
-        strategy = "pjit" if engine.n_devices > 1 else "jit"
-        if decision.strategy != strategy:
-            raise AssertionError(f"{name}: decision {decision}, want {strategy}")
-        _say(f"{name}: {engine.n_devices} devices x {dispatches} dispatches of "
-             f"{engine.batch_for(HEIGHT, WIDTH)} frames, stream byte-identical "
-             f"to the one-card engine's ({len(got)} bytes), decision "
-             f"{decision.strategy} ({decision.reason})")
+        if len(calls) != dispatches:
+            raise AssertionError(f"{name}: {len(calls)} dispatches, want "
+                                 f"{dispatches}")
+        _say(f"{name}: {engine.n_devices} shards x {len(calls)} dispatches of "
+             f"{engine.batch_for(HEIGHT, WIDTH)} frames ({sum(calls)} frames "
+             f"read), stream byte-identical to the one-card engine's "
+             f"({len(got)} bytes)")
 
     longer = io.BytesIO()
     _write_y4m(longer, MESH_STREAM, WIDTH, HEIGHT, seed=5, distinct=16)
@@ -1829,7 +1840,7 @@ def phase_mesh(torch, launches, work: Path, fps: dict):
         dist.destroy_process_group()
     worst = max(abs(a - b) / abs(b) for a, b in zip(res["mesh"], res["plain"]))
     _say(f"one-rank {res['backend']} group (world {res['world']}), plan "
-         f"{res['plan']}, decision {res['decision']}: {MESH_STEPS} steps at batch "
+         f"{res['plan']}: {MESH_STEPS} steps at batch "
          f"{MESH_BATCH} crop {MESH_CROP}, mesh losses "
          f"{', '.join(f'{x:.6f}' for x in res['mesh'])} vs plain "
          f"{', '.join(f'{x:.6f}' for x in res['plain'])} (worst rel {worst:.2e}); "

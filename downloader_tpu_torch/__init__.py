@@ -24,7 +24,7 @@ CLI (the reference's operator commands, ``upscale SRC DST``, ``train
   ``compute/parallel/transfer.py``, ``compute/overlap_probe.py`` —
   copies of the reference's framework-free compute helpers;
 - ``compute/parallel/`` — the (data x model) mesh plan, the partition
-  rules, the pjit/shard_map chooser and process groups (``group.py``);
+  rules and process groups (``group.py``);
   ``graft_entry.py`` — the entry points of ``__graft_entry__.py`` (``entry``,
   ``dryrun_multichip``);
 - ``compute/models/``, ``compute/ops/``, ``compute/weights.py`` — the
@@ -32,8 +32,10 @@ CLI (the reference's operator commands, ``upscale SRC DST``, ``train
 - ``compute/csrc/`` + ``compute/kernels/`` — the hand-written CUDA
   kernels (``sm_90a``) and their ``nvcc``/``ctypes`` loader;
 - ``compute/pipeline.py`` — the batched frame engine, every branch and
-  spatial tiling, data-parallel over every visible card;
-  ``compute/infer.py`` — the RGB inference path;
+  spatial tiling; one process places a shard of each batch on every
+  visible card;
+  ``compute/infer.py`` — the RGB inference path, on one device, on a
+  process's list of devices, or one rank per card in a process group;
 - ``compute/train.py``, ``compute/trainer.py``, ``compute/checkpoint.py``
   — the train step (on one device, or (data x model) in a process
   group), the training loop and the port's own checkpoints;

@@ -10,16 +10,18 @@ of 128, which 3 RGB channels never are; the function is the same.)
 
 With a ``mesh`` (a :class:`~.parallel.mesh.MeshPlan`) the batch is
 data-parallel over the plan's ``data`` devices and the params are
-replicated, through the chooser's shard_map route
-(:func:`~.parallel.chooser.compile_step`): the batch is zero-padded to a
-multiple of the data axis, each shard runs on its device and the rows
-are joined (in a process group, all-gathered, so every rank returns
-the whole).  Batch entries are independent, so the output is
-byte-identical to the one-device path's.
+replicated: the batch is zero-padded to a multiple of the data axis and
+cut into one block of rows per data coordinate.  In a process group
+(one rank per card) each rank runs its own block and the rows are
+all-gathered, so every rank returns the whole; a plan of one process
+over several devices runs each block on its device in turn and joins
+the rows on the plan's first device.  Batch entries are independent, so
+the output is byte-identical to the one-device path's.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import threading
 from typing import Callable, Mapping, Tuple
@@ -30,8 +32,7 @@ import torch
 from .. import resolve_device
 from .models.upscaler import Upscaler, UpscalerConfig
 from .ops.pixel_shuffle import quantize_u8
-from .parallel.chooser import compile_step
-from .parallel.partition import Spec
+from .parallel.mesh import block, gather_global, place, shard_batch
 from .pipeline import no_tf32
 
 
@@ -92,10 +93,7 @@ def make_infer_fn(config: UpscalerConfig = UpscalerConfig(), device=None,
 
         return infer
 
-    def shard(params, frames):
-        return _forward(config, params, frames, frames.device)
-
-    data = mesh.shape["data"]
+    data, home = mesh.shape["data"], mesh.device
 
     @torch.inference_mode()
     def infer_on_mesh(params: Mapping[str, torch.Tensor], frames_u8) -> torch.Tensor:
@@ -104,12 +102,20 @@ def make_infer_fn(config: UpscalerConfig = UpscalerConfig(), device=None,
         pad = -n % data
         if pad:
             frames = torch.cat([frames, frames.new_zeros((pad, *frames.shape[1:]))])
-        fn, decision = compile_step(shard, mesh, batch_shape=(n + pad,),
-                                    in_specs=(Spec(), mesh.data_spec),
-                                    out_specs=mesh.data_spec)
-        if decision.strategy == "jit":
-            frames = frames.to(mesh.device)
-        return fn(params, frames)[:n]
+        if mesh.size == 1:
+            return _forward(config, params, frames, home)
+        if mesh.mesh is not None:  # this rank's rows, then every rank's
+            out = _forward(config, params, shard_batch(mesh, frames), home)
+            return gather_global(mesh, out, mesh.data_spec)[:n]
+        parts = []
+        for d in range(data):
+            device = mesh.grid[d, 0]
+            rows = block(frames, mesh, mesh.data_spec, (d, 0))
+            with (torch.cuda.device(device) if device.type == "cuda"
+                  else contextlib.nullcontext()):
+                out = _forward(config, params, rows, device)
+            parts.append(out if out.device == home else place(out, home))
+        return torch.cat(parts)[:n]
 
     return infer_on_mesh
 

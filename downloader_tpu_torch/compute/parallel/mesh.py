@@ -105,10 +105,6 @@ class MeshPlan:
         """Batches: the leading (batch) dim split over ``data``."""
         return Spec("data")
 
-    @property
-    def replicated(self) -> Spec:
-        return Spec()
-
     def param_spec(self, name: str, value) -> Spec:
         """Tensor-parallel param layout, resolved through
         :data:`~.partition.UPSCALER_RULES` (an upscaler param the table
@@ -191,9 +187,10 @@ def make_global(value, plan: MeshPlan, spec: Spec = Spec()) -> torch.Tensor:
     """This process's block of a value every process holds identically,
     on its device: the rows of its ``data`` coordinate, the channel slice
     of its ``model`` coordinate, as ``spec`` says.  A plan of one device
-    gets the whole value.  A plan of one process over several devices
-    places per-device shards itself (the engine; ``compile_step``'s
-    shard_map route), so it raises here."""
+    gets the whole value.  On a plan of one process over several devices
+    the caller places a shard on each device itself (the engine cuts its
+    pinned batch; ``infer`` takes each device's :func:`block`), so such
+    a plan raises here."""
     if plan.mesh is None and plan.size > 1:
         raise ValueError("make_global takes a plan in a process group or of "
                          "one device; a plan of one process over "

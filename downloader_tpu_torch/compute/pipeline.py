@@ -35,8 +35,9 @@ an engine on CUDA adopts every visible card; ``devices=`` names the list
 (a device may repeat: ``["cpu"] * 8`` stands for XLA's 8 virtual host
 devices, ``["cuda:0", "cuda:0"]`` drives the split on one card).  The
 batch is rounded up to a multiple of the device count, the model is
-replicated once per distinct device, and each dispatch zero-pads to the
-static batch, splits it into equal shards and runs one on each device;
+replicated once per distinct device, and the engine's one process places
+the shards itself: each dispatch zero-pads to the static batch, splits it
+into equal shards and runs one on each device;
 batch entries are independent through every conv, so the split changes
 no pixel.  With one device nothing is padded: every batch runs at its
 own size.
@@ -78,7 +79,7 @@ import contextlib
 import copy
 import dataclasses
 import threading
-from typing import (Dict, Iterable, Iterator, List, Mapping, Optional,
+from typing import (Iterable, Iterator, List, Mapping, Optional,
                     Sequence, Tuple)
 
 import numpy as np
@@ -97,8 +98,6 @@ from .ops.colorspace import (
 )
 from .ops.pixel_shuffle import quantize_u8
 from .ops.s2d_head import s2d_head
-from .parallel.chooser import Decision, compile_step
-from .parallel.mesh import MeshPlan
 from .parallel.transfer import HopSink, TransferQueue, timed_hop, timed_next
 from .video import Y4MError, Y4MHeader, Y4MReader, Y4MWriter
 
@@ -284,10 +283,6 @@ class FrameUpscaler:
         # static batch: a multiple of the device count, so every device
         # gets an equal shard
         self.batch = -(-max(1, batch) // self.n_devices) * self.n_devices
-        self.plan = MeshPlan.over(devices)
-        # (sub_h, sub_w) -> the chooser's Decision: pjit over several
-        # devices (the engine places its shards), jit on one
-        self.compile_decisions: Dict[Tuple[int, int], Decision] = {}
         # per-job hop billing target (see parallel/transfer.py)
         self.hop_sink = HopSink("engine")
 
@@ -402,20 +397,6 @@ class FrameUpscaler:
         return self._tiled(y, cb, cr, sub_h, sub_w, rows, cols)
 
     # ------------------------------------------------------------------
-    def _decide(self, sub_h: int, sub_w: int) -> None:
-        """Record the chooser's decision for this chroma sampling: the
-        engine places its shards itself (explicit shardings), as the
-        reference's ``_compiled`` does."""
-        if (sub_h, sub_w) not in self.compile_decisions:
-            meshed = self.n_devices > 1
-            data = self.plan.data_spec
-            _fn, decision = compile_step(
-                self._core, self.plan if meshed else None,
-                batch_shape=(self.batch,),
-                in_shardings=(self.plan.replicated, data, data, data)
-                if meshed else None)
-            self.compile_decisions[(sub_h, sub_w)] = decision
-
     def _dispatch(self, y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
                   sub_h: int, sub_w: int) -> _InFlight:
         """Stage and launch one batch WITHOUT waiting for the devices: on
@@ -423,7 +404,6 @@ class FrameUpscaler:
         equal shard per device, each shard's d2h copy queued on its
         device's download stream behind its compute, into its rows of
         one pinned output.  :meth:`_fetch` materializes the result."""
-        self._decide(sub_h, sub_w)
         planes = (y, cb, cr)
         n = y.shape[0]
         total = n

@@ -8,27 +8,27 @@ counterpart of ``jax.checkpoint``: its activations are recomputed in the
 backward instead of held.  (The reentrant variant returns no parameter
 gradients when the segment's input needs none, and says nothing.)
 
-JAX's step is a pure function whose donated state comes back new; here
-the state is a :class:`TrainState` (the model and its optimizer) that a
-step updates in place, and the step returns the loss as a device tensor
-so nothing waits for the card until the caller reads it.
+JAX's step is a pure function that returns a new state; here the state
+is a :class:`TrainState` (the model and its optimizer) that a step
+updates in place, and the step returns the loss as a device tensor so
+nothing waits for the card until the caller reads it.
 
 The convs and their backward run on cuDNN, as the reference leaves them
 to XLA; Adam is ``torch.optim.Adam`` with optax's defaults (betas 0.9 /
 0.999, eps 1e-8), fused on the card.  TF32 stays off around the step, as
 in the engine, so the f32-compute configuration computes in f32.
 
-:func:`compile_train_step` routes the step through the chooser, as the
-reference's does (``train.py:53-75``).  Without a process group it is
-the step above.  In one (one process per device; NCCL on cards, gloo on
-the CPU) it is the (data x model) step: each rank holds its rows of the
-batch and, per :data:`~.parallel.partition.UPSCALER_RULES`, the output
-channels of every trunk conv that its ``model`` coordinate owns; each
-trunk conv's slice is all-gathered over the ``model`` group on the
-channel dim before the relu and the residual add (the sub-pixel head is
-replicated), and the gradients and the loss are averaged over the
-``data`` group, so Adam updates each rank's shards and every rank
-reads the same loss.
+:func:`compile_train_step` picks the step for where it runs (the
+reference's ``train.py:53-75``).  Without a process group it is the step
+above, on one device.  In a process group of one rank per card (NCCL on
+cards, gloo on the CPU) it is the (data x model) step: each rank holds
+its rows of the batch and, per
+:data:`~.parallel.partition.UPSCALER_RULES`, the output channels of
+every trunk conv that its ``model`` coordinate owns; each trunk conv's
+slice is all-gathered over the ``model`` group on the channel dim before
+the relu and the residual add (the sub-pixel head is replicated), and
+the gradients and the loss are averaged over the ``data`` group, so Adam
+updates each rank's shards and every rank reads the same loss.
 """
 
 from __future__ import annotations
@@ -43,7 +43,6 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from .models.upscaler import Upscaler, UpscalerConfig
-from .parallel.chooser import Decision, compile_step
 from .parallel.mesh import MeshPlan, shard_params
 from .pipeline import no_tf32
 
@@ -218,12 +217,11 @@ def _sharded_train_step(config: UpscalerConfig, plan: MeshPlan,
 
 def compile_train_step(config: UpscalerConfig = UpscalerConfig(),
                        mesh: Optional[MeshPlan] = None,
-                       learning_rate: float = 1e-3, donate: bool = True,
-                       in_shardings=None, device=None
+                       learning_rate: float = 1e-3, device=None
                        ) -> Tuple[Callable[..., torch.Tensor],
-                                  Callable[..., TrainState], Decision]:
-    """The train step routed through the pjit-vs-shard_map chooser;
-    returns ``(step, init_state, decision)``, as the reference's does.
+                                  Callable[..., TrainState], Optional[MeshPlan]]:
+    """The train step for ``mesh``; returns ``(step, init_state, plan)``,
+    ``plan`` being the plan the step runs on (``mesh``, or None).
 
     Without ``mesh`` (or on a plan of one process) it is
     :func:`make_train_step`'s step on ``device`` (the plan's).  On a plan
@@ -232,12 +230,7 @@ def compile_train_step(config: UpscalerConfig = UpscalerConfig(),
     the plan, and ``step(state, low_res, high_res)`` takes this rank's
     rows (:func:`~.parallel.mesh.shard_batch`) and returns the loss of
     the whole batch.  A plan of one process over several devices raises:
-    training is one process per device.
-
-    ``donate`` and ``in_shardings`` are the reference's knobs: the state
-    is always updated in place (nothing to donate in eager PyTorch), and
-    ``in_shardings`` only moves the decision to pjit."""
-    del donate  # the state is updated in place on every route
+    training is one process per device."""
     if mesh is not None and mesh.mesh is not None:
         if device is not None and resolve_device(device).type != mesh.device.type:
             raise ValueError(f"device {device} is not the plan's {mesh.device}")
@@ -251,5 +244,4 @@ def compile_train_step(config: UpscalerConfig = UpscalerConfig(),
                     "(parallel.group.run_group, or torchrun)")
             device = mesh.device
         train_step, init_state = make_train_step(config, learning_rate, device)
-    step, decision = compile_step(train_step, mesh, in_shardings=in_shardings)
-    return step, init_state, decision
+    return train_step, init_state, mesh

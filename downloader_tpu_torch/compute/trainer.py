@@ -212,7 +212,7 @@ def train(paths: Sequence[str], settings: TrainerSettings = TrainerSettings(),
     data_axis = plan.shape["data"] if plan is not None else 1
     batch = -(-settings.batch // data_axis) * data_axis
 
-    train_step, init_state, _decision = compile_train_step(
+    train_step, init_state, _plan = compile_train_step(
         config, mesh=plan, learning_rate=settings.learning_rate, device=dev)
     state = init_state(settings.seed)
 

@@ -14,13 +14,11 @@ import numpy as np
 import pytest
 import torch
 
-from downloader_tpu.compute.models.upscaler import UpscalerConfig as JaxConfig
-from downloader_tpu.compute.pipeline import FrameUpscaler as JaxUpscaler
+from downloader_tpu_torch.compute import infer
 from downloader_tpu_torch.compute.infer import make_infer_fn
 from downloader_tpu_torch.compute.models.upscaler import Upscaler, UpscalerConfig
 from downloader_tpu_torch.compute.overlap_probe import measure_overlap
-from downloader_tpu_torch.compute.parallel import MeshPlan, decision_cache
-from downloader_tpu_torch.compute.parallel.chooser import clear_decisions
+from downloader_tpu_torch.compute.parallel import MeshPlan
 from downloader_tpu_torch.compute.pipeline import FrameUpscaler
 from downloader_tpu_torch.compute.weights import from_flax
 
@@ -49,7 +47,11 @@ def test_frame_upscaler_shards_over_devices():
 
 @pytest.fixture(scope="module")
 def jax_sharded():
-    """The reference's 8-device engine (seed 3) and its params bridged."""
+    """The reference's 8-device engine (seed 3) and its params bridged
+    (JAX is imported here, so the card's tests collect without it)."""
+    from downloader_tpu.compute.models.upscaler import UpscalerConfig as JaxConfig
+    from downloader_tpu.compute.pipeline import FrameUpscaler as JaxUpscaler
+
     engine = JaxUpscaler(config=JaxConfig(features=8, depth=2), batch=8,
                          use_mesh=True, seed=3)
     assert engine.n_devices == 8
@@ -119,22 +121,74 @@ def test_sharded_stream_matches_single_device(tmp_path):
     assert outs[0] == outs[1]
 
 
-@pytest.mark.parametrize("n,data", [(5, 4), (8, 4), (3, 1)])
-def test_infer_on_a_mesh_is_byte_identical_to_one_device(n, data):
-    """``make_infer_fn(mesh=)`` splits the batch over the plan's data
-    devices (zero-padded to a multiple of them) through the shard_map
-    route; the rows come back byte-identical to the one-device path."""
-    clear_decisions()
+@pytest.fixture(scope="module")
+def one_device():
+    return FrameUpscaler(CONFIG, batch=8, seed=5, device="cpu")
+
+
+@pytest.mark.parametrize("k", [2, 3, 4, 8])
+@pytest.mark.parametrize("n", [1, 3, 5, 8])
+def test_sharded_engine_matches_one_device(one_device, k, n):
+    """An engine over ``["cpu"] * k``: ``upscale_batch`` is byte for
+    byte the one-device engine's, and every shard is the static batch's
+    k-th part (the short batches zero-padded up to it)."""
+    engine = FrameUpscaler(CONFIG, batch=8, seed=5, devices=["cpu"] * k)
+    core, rows = engine._core, []
+
+    def spy(y, cb, cr, sub_h, sub_w):
+        rows.append(y.shape[0])
+        return core(y, cb, cr, sub_h, sub_w)
+
+    engine._core = spy
+    y, cb, cr = _planes(n, 8, 12, seed=n)
+    got = engine.upscale_batch(y, cb, cr, 2, 2)
+    for plane, want in zip(got, one_device.upscale_batch(y, cb, cr, 2, 2)):
+        assert plane.shape[0] == n
+        np.testing.assert_array_equal(plane, want)
+    assert rows == [engine.batch // k] * k
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 8])
+@pytest.mark.parametrize("b", [1, 3, 8, 9])
+def test_engine_static_batch_and_budget(b, k):
+    """The static batch is the asked one rounded up to a multiple of
+    the device count, and the dispatch size at 1080p and at 4K is the
+    pixel budget per device times the devices, capped by that batch."""
+    engine = FrameUpscaler(CONFIG, batch=b, devices=["cpu"] * k)
+    assert engine.n_devices == k
+    assert engine.batch == math.ceil(b / k) * k
+    for h, w in ((1080, 1920), (2160, 3840)):
+        budget = FrameUpscaler.PIXEL_BUDGET // (h * w) * k
+        assert engine.batch_for(h, w) == min(engine.batch, budget)
+
+
+@pytest.mark.parametrize("devices,model_axis",
+                         [(1, 1), (2, 1), (4, 1), (4, 2), (8, 1), (8, 2)])
+@pytest.mark.parametrize("n", [1, 3, 5, 8])
+def test_infer_on_a_mesh_is_byte_identical_to_one_device(monkeypatch, n, devices,
+                                                         model_axis):
+    """``make_infer_fn(mesh=)`` zero-pads the batch to a multiple of the
+    plan's data devices and runs one block of rows on each, in order;
+    the rows come back byte-identical to the one-device path."""
     params = Upscaler(CONFIG, seed=4).state_dict()
     frames = np.random.default_rng(6).integers(0, 256, (n, 6, 10, 3), np.uint8)
     want = make_infer_fn(CONFIG, "cpu")(params, frames)
-    plan = MeshPlan.over(["cpu"] * data)
+    forward, blocks = infer._forward, []
+
+    def spy(config, params, rows, dev):
+        blocks.append(rows.clone())
+        return forward(config, params, rows, dev)
+
+    monkeypatch.setattr(infer, "_forward", spy)
+    plan = MeshPlan.over(["cpu"] * devices, model_axis)
     got = make_infer_fn(CONFIG, mesh=plan)(params, frames)
     assert got.shape == (n, 12, 20, 3) and got.dtype == torch.uint8
     assert torch.equal(got, want)
-    strategy = "shard_map" if data > 1 else "jit"
-    assert [d.strategy for d in decision_cache().values()] == [strategy]
-    clear_decisions()
+    data = devices // model_axis
+    padded = math.ceil(n / data) * data
+    assert [b.shape[0] for b in blocks] == [padded // data] * data
+    assert torch.equal(torch.cat(blocks)[:n], torch.from_numpy(frames))
+    assert not torch.cat(blocks)[n:].any()  # the padding is zeros
 
 
 def test_overlap_probe_runs_on_the_port_engine():

@@ -1,10 +1,9 @@
-"""The port's partition rules, mesh plans and chooser against the JAX
-package's — mirrors ``tests/test_compute_shard.py``'s chooser and rules
-tests (``:55-311``).
+"""The port's partition rules and mesh plans against the JAX package's —
+mirrors ``tests/test_compute_shard.py``'s rules tests (``:55-311``).
 
 The reference's meshes are the 8 virtual CPU devices ``tests/conftest.py``
 gives JAX; the port's counterpart is a plan of one process listing the
-CPU 8 times.  Decisions must be the reference's, strategy and reason.
+CPU 8 times.
 """
 
 import contextlib
@@ -17,7 +16,6 @@ jax = pytest.importorskip("jax")
 from jax.sharding import PartitionSpec as P  # noqa: E402
 
 from downloader_tpu.compute.models import upscaler as ref_upscaler  # noqa: E402
-from downloader_tpu.compute.parallel import chooser as ref_chooser  # noqa: E402
 from downloader_tpu.compute.parallel import mesh as ref_mesh  # noqa: E402
 from downloader_tpu.compute.parallel import partition as ref_partition  # noqa: E402
 from downloader_tpu_torch.compute import kernels  # noqa: E402
@@ -26,135 +24,18 @@ from downloader_tpu_torch.compute.models.upscaler import (  # noqa: E402
     UpscalerConfig,
 )
 from downloader_tpu_torch.compute.parallel import (  # noqa: E402
-    Decision,
     UPSCALER_RULES,
     MeshPlan,
-    choose,
-    compile_step,
-    decision_cache,
     make_global,
     make_mesh,
     match_partition_rules,
     rule_audit,
     spec_for,
 )
-from downloader_tpu_torch.compute.parallel.chooser import clear_decisions  # noqa: E402
 from downloader_tpu_torch.compute.parallel.partition import Spec  # noqa: E402
-from downloader_tpu_torch.compute.pipeline import FrameUpscaler  # noqa: E402
 from downloader_tpu_torch.compute.weights import to_flax  # noqa: E402
 
 TINY = UpscalerConfig(features=16, depth=2, scale=2)
-
-
-@pytest.fixture(autouse=True)
-def _fresh_decisions():
-    clear_decisions()
-    ref_chooser.clear_decisions()
-    yield
-    clear_decisions()
-    ref_chooser.clear_decisions()
-
-
-def _plans(model_axis):
-    """The port's plan and the reference's mesh of 8 devices."""
-    return (MeshPlan.over(["cpu"] * 8, model_axis),
-            ref_mesh.make_mesh(8, model_axis=model_axis).mesh)
-
-
-# ---------------------------------------------------------------- chooser
-
-def _pair(decision) -> tuple:
-    return (decision.strategy, decision.reason)
-
-
-def test_chooser_no_mesh_is_jit():
-    got = choose(None, (8,), explicit_shardings=False)
-    assert _pair(got) == _pair(ref_chooser.choose(None, (8,),
-                                                  explicit_shardings=False))
-    assert got.strategy == "jit"
-
-
-def test_chooser_single_device_plan_is_jit():
-    ref = jax.sharding.Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
-                            ("data", "model"))
-    got = choose(MeshPlan.over(["cpu"]), (8,), explicit_shardings=False)
-    assert _pair(got) == _pair(ref_chooser.choose(ref, (8,),
-                                                  explicit_shardings=False))
-    assert got.strategy == "jit"
-
-
-@pytest.mark.parametrize("model_axis", [1, 2, 4, 8])
-@pytest.mark.parametrize("batch_shape", [(8,), (7,), (16,), (2,), None])
-@pytest.mark.parametrize("explicit", [False, True])
-def test_chooser_decisions_equal_the_reference(model_axis, batch_shape, explicit):
-    """For each mesh shape, batch and sharding flag the port's Decision
-    is the reference's, strategy and reason."""
-    plan, mesh = _plans(model_axis)
-    got = choose(plan, batch_shape, explicit_shardings=explicit)
-    want = ref_chooser.choose(mesh, batch_shape, explicit_shardings=explicit)
-    assert isinstance(got, Decision)
-    assert _pair(got) == _pair(want)
-
-
-def test_chooser_decisions_pinned_per_shape_and_mesh():
-    """One decision per (shape, mesh), cached — a re-ask is a hit."""
-    plan = MeshPlan.over(["cpu"] * 8, 2)
-    expected = {
-        (None, (8,)): "jit",
-        (plan, (8,)): "shard_map",
-        (plan, (7,)): "pjit",
-        (plan, None): "pjit",
-    }
-    for (mesh, shape), strategy in expected.items():
-        assert choose(mesh, shape, explicit_shardings=False).strategy == strategy
-    assert len(decision_cache()) == len(expected)
-    before = choose(plan, (8,), explicit_shardings=False)
-    assert choose(plan, (8,), explicit_shardings=False) is before
-    # keyed on (axis names, grid shape): another plan of that shape hits
-    assert choose(MeshPlan.over(["cpu"] * 8, 2), (8,),
-                  explicit_shardings=False) is before
-
-
-def test_compile_step_shard_map_requires_specs():
-    with pytest.raises(ValueError, match="in_specs/out_specs"):
-        compile_step(lambda x: x, MeshPlan.over(["cpu"] * 8, 2), batch_shape=(8,))
-
-
-@pytest.mark.parametrize("model_axis", [1, 2])
-def test_compile_step_shard_map_route_executes(model_axis):
-    """The reference's shard_map route does not run on this tree (its
-    ``check_rep``); the port's is held against the single-device output:
-    one call per data shard, each on its own rows, rows joined in order."""
-    plan = MeshPlan.over(["cpu"] * 8, model_axis)
-    seen = []
-
-    def per_shard(scale, x):
-        seen.append(tuple(x.tolist()))
-        return x * scale
-
-    fn, decision = compile_step(per_shard, plan, batch_shape=(8,),
-                                in_specs=(Spec(), Spec("data")),
-                                out_specs=Spec("data"))
-    assert decision.strategy == "shard_map"
-    x = torch.arange(8.0)
-    np.testing.assert_array_equal(fn(2.0, x).numpy(), (x * 2.0).numpy())
-    data = 8 // model_axis
-    assert seen == [tuple(c.tolist()) for c in x.chunk(data)]
-
-
-def test_compile_step_jit_and_pjit_return_the_function_and_refuse_model_specs():
-    def fn(x):
-        return x
-
-    assert compile_step(fn, None) == (fn, Decision(
-        "jit", "single device: no mesh to map over"))
-    plan = MeshPlan.over(["cpu"] * 4, 2)
-    got, decision = compile_step(fn, plan, in_shardings=(Spec("data"),),
-                                 donate_argnums=(0,))
-    assert got is fn and decision.strategy == "pjit"
-    with pytest.raises(ValueError, match="only over 'data'"):
-        compile_step(fn, plan, batch_shape=(4,), in_specs=(Spec("model"),),
-                     out_specs=Spec("data"))
 
 
 # -------------------------------------------------------- partition table
@@ -234,7 +115,7 @@ def test_make_mesh_errors_are_the_reference_s():
 def test_plan_shape_and_specs():
     plan = MeshPlan.over(["cpu"] * 8, 2)
     assert plan.shape == dict(ref_mesh.make_mesh(8, model_axis=2).mesh.shape)
-    assert plan.data_spec == Spec("data") and plan.replicated == Spec()
+    assert plan.data_spec == Spec("data")
     assert plan.param_spec("body_1.weight", np.zeros((4, 4, 3, 3))) == \
         Spec("model", None, None, None)
 
@@ -249,30 +130,6 @@ def test_make_global_takes_one_process_s_block():
     assert make_global(src, make_mesh(device="cpu")).data_ptr() != src.data_ptr()
     with pytest.raises(ValueError, match="places its shards itself"):
         make_global(value, MeshPlan.over(["cpu"] * 2), Spec("data"))
-
-
-# ----------------------------------------------------------------- engine
-
-def test_engine_records_compile_decisions():
-    """Mirrors ``test_engine_bills_three_hops_and_caches_decisions``: the
-    chooser's verdict per (sub_h, sub_w) is kept on the engine — pjit
-    over several devices (the engine places its shards), jit on one —
-    and equals the reference's for the same mesh and batch."""
-    config = UpscalerConfig(features=8, depth=2)
-    rng = np.random.default_rng(0)
-    y = rng.integers(0, 256, (3, 8, 8), dtype=np.uint8)
-    c = rng.integers(0, 256, (3, 4, 4), dtype=np.uint8)
-    for devices, strategy in ((["cpu"] * 4, "pjit"), (["cpu"], "jit")):
-        engine = FrameUpscaler(config, batch=3, devices=devices)
-        engine.upscale_batch(y, c, c, 2, 2)
-        got = engine.compile_decisions[(2, 2)]
-        ref = jax.sharding.Mesh(
-            np.array(jax.devices()[:len(devices)]).reshape(len(devices)),
-            ("data",))
-        want = ref_chooser.choose(ref, (engine.batch,),
-                                  explicit_shardings=len(devices) > 1)
-        assert _pair(got) == _pair(want)
-        assert got.strategy == strategy
 
 
 # ---------------------------------------------- the launch-device repair

@@ -22,8 +22,13 @@ from downloader_tpu.compute.models.upscaler import UpscalerConfig as JaxConfig
 from downloader_tpu.compute.train import make_train_step as jax_make_train_step
 from downloader_tpu_torch.compute import checkpoint as tckpt
 from downloader_tpu_torch.compute.models.upscaler import UpscalerConfig
+from downloader_tpu_torch.compute.parallel import MeshPlan
 from downloader_tpu_torch.compute.pipeline import FrameUpscaler
-from downloader_tpu_torch.compute.train import make_optimizer, make_train_step
+from downloader_tpu_torch.compute.train import (
+    compile_train_step,
+    make_optimizer,
+    make_train_step,
+)
 from downloader_tpu_torch.compute.weights import from_flax
 
 TINY = UpscalerConfig(features=16, depth=2)
@@ -73,6 +78,36 @@ def test_train_step_reduces_loss():
     high = low.repeat_interleave(2, 1).repeat_interleave(2, 2)
     losses = [float(train_step(state, low, high)) for _ in range(12)]
     assert losses[-1] < losses[0]
+
+
+@pytest.mark.parametrize("route", ["no-mesh", "one-device-plan",
+                                   "one-process-two-devices"])
+def test_compile_train_step_routes(route):
+    """Without a process group ``compile_train_step`` is the plain step:
+    with no mesh its loss is ``make_train_step``'s on the same seed and
+    batch, on a one-device plan it runs on the plan's device and returns
+    that plan, and a plan of one process over two devices raises."""
+    if route == "one-process-two-devices":
+        with pytest.raises(ValueError, match="one process per device"):
+            compile_train_step(TINY, mesh=MeshPlan.over(["cpu"] * 2))
+        return
+    low, high = (torch.from_numpy(a) for a in _batch(2, 8, 8, 2, seed=3))
+    plain_step, plain_init = make_train_step(TINY, device="cpu")
+    want = plain_step(plain_init(2), low, high)
+    if route == "no-mesh":
+        step, init_state, plan = compile_train_step(TINY, device="cpu")
+        assert plan is None
+        home = torch.device("cpu")
+    else:
+        mesh = MeshPlan.over(["cpu"])
+        step, init_state, plan = compile_train_step(TINY, mesh=mesh)
+        assert plan is mesh
+        home = mesh.device
+    state = init_state(2)
+    assert next(state.model.parameters()).device == home
+    loss = step(state, low, high)
+    assert loss.device == home
+    assert float(loss) == float(want)
 
 
 @pytest.mark.parametrize("compute", ["f32", "bf16"])
