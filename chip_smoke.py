@@ -26,6 +26,14 @@ Phases, each failing the run (non-zero exit) on any error:
    1080p batches, held to <= 1 bf16 ulp and >= 99% exact (the tensor
    cores sum f32 in another order); kernel, plain and the cuDNN conv +
    bias pass timed at 720p and 1080p;
+4b. ``conv_epilogue``: each of its three variants (bias, bias + relu,
+   bias + relu + residual) against its plain version (the three PyTorch
+   ops) on the card, bit for bit with +-0 and NaN among the values and
+   in place over the conv output, at the (8, 1080, 1920, 128) and (8,
+   540, 960, 128) body maps of 1080p and 540p batches, the (8, 540, 960,
+   48) x4 head map and a ragged (3, 37, 53, 12) map (the scalar
+   variant); kernel and plain timed at the three full-size maps beside
+   the least time for their bytes;
 5. main path: a seeded 16-frame 1920x1080 4:2:0 Y4M through the port's
    ``upscale`` CLI at the model's full width (``python -m
    downloader_tpu_torch upscale`` in a subprocess, then the CLI's
@@ -120,8 +128,10 @@ Phases, each failing the run (non-zero exit) on any error:
    from the same seed (losses within ``MESH_LOSS_RTOL``), with ms/step of
    each; ``dryrun_multichip`` over the visible cards (its ok line; its
    group of one process per card is spawned through ``run_group``); and
-   ``measure_overlap`` on the card's engine at 720p, best of 3 against
-   the reference's alarm (overlap >= 0.5, pipelined <= 0.85 x serial);
+   ``measure_overlap`` on the card's engine at 720p, its source paced at
+   3 ms a frame (under a batch's compute, so there is 15% to hide), best
+   of 3 against the reference's alarm (overlap >= 0.5, pipelined <= 0.85
+   x serial);
 16. the port's lint gate on the card's machine: ``python -m
    downloader_tpu_torch.analysis --json`` in a subprocess from the repo
    root (the port's package, its tests and this script) must exit 0 with
@@ -145,7 +155,8 @@ Phases, each failing the run (non-zero exit) on any error:
 Every path of phases 5-10, 12, 13, 14, 15 and 17 runs with every kernel's launch counter set to
 0 just before it and read just after; each count must be the one the
 path implies (e.g. 3 standalone quantizes per generic-tail batch, 0 head
-kernels on the engine's paths).
+kernels on the engine's paths, an epilogue per conv of each batch's
+forward: 4 on the s2d branches, 5 on the plain head, 0 in training).
 
 It prints the card line (``nvidia-smi --query-gpu=name,power.limit``),
 then one JSON line with every kernel's numbers, and last
@@ -182,6 +193,12 @@ _CARDS = [
 ]
 
 FRAMES, WIDTH, HEIGHT = 16, 1920, 1080
+# conv_epilogue launches per forward: one per trunk conv (the stem and
+# the body, UpscalerConfig().depth in all, checked in main()) on the s2d
+# branches, whose head adds its own bias, and one more for the plain
+# sub-pixel head on the generic tail, the odd-dims branch and infer
+EPILOGUES_S2D = 4
+EPILOGUES_PLAIN = EPILOGUES_S2D + 1
 STREAM_BATCHES, RUNS = 32, 3  # throughput: batches per timed stream, runs
 
 
@@ -455,6 +472,71 @@ def phase_head(torch, rates, results):
         torch.cuda.empty_cache()
 
 
+def _epilogue_operand(torch, shape, gen, dev):
+    """A (B, H, W, C) bf16 map made on the card, viewed as (B, C, H, W)
+    channels_last as the conv gives it: normal values with ~5% -0, ~5%
+    +0 and ~2% NaN."""
+    x = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    pick = torch.randint(0, 100, shape, generator=gen, device=dev, dtype=torch.uint8)
+    x.masked_fill_(pick < 5, -0.0)
+    x.masked_fill_((pick >= 5) & (pick < 10), 0.0)
+    x.masked_fill_((pick >= 10) & (pick < 12), float("nan"))
+    return x.permute(0, 3, 1, 2)
+
+
+def phase_epilogue(torch, rates, results):
+    from downloader_tpu_torch.compute.ops.conv_epilogue import (
+        conv_epilogue,
+        conv_epilogue_plain,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    variants = {"residual": (True, True), "relu": (True, False),
+                "bias": (False, False)}
+    for label, shape in (("1080p body", (8, HEIGHT, WIDTH, 128)),
+                         ("540p body", (8, HEIGHT // 2, WIDTH // 2, 128)),
+                         ("540p x4 head", (8, HEIGHT // 2, WIDTH // 2, 48)),
+                         ("ragged", (3, 37, 53, 12))):
+        y = _epilogue_operand(torch, shape, gen, dev)
+        res = _epilogue_operand(torch, shape, gen, dev)
+        bias = _epilogue_operand(torch, (1, 1, 1, shape[-1]), gen, dev).reshape(-1)
+        for name, (relu, residual) in variants.items():
+            x = res if residual else None
+            want = conv_epilogue_plain(y, bias, relu, x)
+            out = y.clone()
+            got = conv_epilogue(out, bias, relu, x)
+            torch.cuda.synchronize()
+            differ = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+            if got.data_ptr() != out.data_ptr() or differ:
+                raise AssertionError(f"conv_epilogue {name} {label} {shape}: "
+                                     f"{differ} of {want.numel()} values differ "
+                                     "from plain, or not written in place")
+            del want
+            if label == "ragged":
+                _say(f"conv_epilogue {name} {label} {shape}: bit-exact vs plain, "
+                     "in place")
+                continue
+            ms = _time_ms(torch, lambda: conv_epilogue(out, bias, relu, x))
+            plain_ms = _time_ms(torch, lambda: conv_epilogue_plain(y, bias, relu, x))
+            # the conv output (and the residual) read, the result written;
+            # an add per element, a max and another add where they apply
+            moved = 3 if residual else 2
+            nbytes = (moved * y.numel() + bias.numel()) * 2
+            bound, by = _bound_ms(nbytes, (1 + relu + residual) * y.numel(), rates)
+            _say(f"conv_epilogue {name} {label} {shape}: bit-exact vs plain, in "
+                 f"place; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                 f"{bound:.4f} ms ({by}, {nbytes / 1e9:.3f} GB; kernel at "
+                 f"{100 * bound / ms:.1f}% of it)")
+            if (name, label) == ("residual", "1080p body"):
+                results["conv_epilogue"] = dict(
+                    ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                    max_abs_err=0, library_ms=None)
+            del out, got
+        del y, res, x
+        torch.cuda.empty_cache()
+
+
 def _write_y4m(fh, frames: int, width: int, height: int, seed: int,
                distinct: int = 0, colorspace: str = "420jpeg"):
     """A seeded Y4M stream into ``fh``: ``distinct`` different frames
@@ -568,6 +650,19 @@ class _Launches:
             raise AssertionError(f"{name} path launched {got}, expected {want}")
 
 
+def _s2d_cores(n: int) -> dict:
+    """The launches of ``n`` forwards on an s2d branch: a tail each and
+    an epilogue per trunk conv."""
+    return {"s2d_tail": n, "conv_epilogue": EPILOGUES_S2D * n}
+
+
+def _plain_head_cores(n: int) -> dict:
+    """The launches of ``n`` forwards on the plain head (the generic tail
+    and the odd-dims branch): three standalone quantizes and an epilogue
+    per conv each."""
+    return {"quantize_u8": 3 * n, "conv_epilogue": EPILOGUES_PLAIN * n}
+
+
 def _run_cli(cli, *args) -> float:
     t0 = time.monotonic()
     rc = cli.main(["upscale", *map(str, args)])
@@ -599,7 +694,7 @@ def phase_main_path(torch, launches, work: Path):
 
     # the same CLI in-process, counted: one tail launch per batch of 8,
     # its three quantizes inline (the standalone kernel stays at 0)
-    with launches.path("main", {"s2d_tail": FRAMES // 8}):
+    with launches.path("main", _s2d_cores(FRAMES // 8)):
         wall = _run_cli(cli, src, dst)
     _say(f"upscale CLI main(): {FRAMES} frames in {wall:.2f} s")
 
@@ -694,7 +789,7 @@ def phase_4k(torch, launches, work: Path):
 
     pipeline._tile_grid = recorded
     try:
-        with launches.path("4k_tiled", {"s2d_tail": frames // 2}):
+        with launches.path("4k_tiled", _s2d_cores(frames // 2)):
             wall = _run_cli(cli, src, dst)
     finally:
         pipeline._tile_grid = decide
@@ -752,7 +847,7 @@ def phase_generic(torch, launches, work: Path):
     src, dst = work / "src444.y4m", work / "dst444.y4m"
     with open(src, "wb") as fh:
         _write_y4m(fh, frames, WIDTH, HEIGHT, seed=9, colorspace="444")
-    with launches.path("generic_tail", {"quantize_u8": 3 * (frames // 8)}):
+    with launches.path("generic_tail", _plain_head_cores(frames // 8)):
         wall = _run_cli(cli, src, dst)
     hdr, out = _read_y4m(dst)
     if ((hdr.width, hdr.height, hdr.colorspace) != (2 * WIDTH, 2 * HEIGHT, "444")
@@ -784,7 +879,7 @@ def phase_odd(torch, launches, work: Path):
         _write_y4m(fh, frames, width, height, seed=11, colorspace="444")
     engine = FrameUpscaler(config)
     t0 = time.monotonic()
-    with launches.path("odd_dims", {"quantize_u8": 3 * (frames // 8)}):
+    with launches.path("odd_dims", _plain_head_cores(frames // 8)):
         done = engine.upscale_y4m(str(src), str(dst))
     hdr, out = _read_y4m(dst)
     if done != frames or (hdr.width, hdr.height) != (width, height) or len(out) != frames:
@@ -814,7 +909,7 @@ def phase_scale1_s2d(torch, launches, work: Path):
         _write_y4m(fh, frames, WIDTH, HEIGHT, seed=14, colorspace="444")
     engine = FrameUpscaler(config)
     t0 = time.monotonic()
-    with launches.path("scale1_s2d", {"s2d_tail": frames // 8}):
+    with launches.path("scale1_s2d", _s2d_cores(frames // 8)):
         done = engine.upscale_y4m(str(src), str(dst))
     hdr, out = _read_y4m(dst)
     if (done != frames or (hdr.width, hdr.height, hdr.colorspace) != (WIDTH, HEIGHT, "444")
@@ -842,7 +937,8 @@ def phase_infer(torch, launches):
     frames = np.random.default_rng(13).integers(0, 256, (4, HEIGHT, WIDTH, 3),
                                                 np.uint8)
     t0 = time.monotonic()
-    with launches.path("infer", {"quantize_u8": 1}):  # synchronizes on exit
+    # synchronizes on exit
+    with launches.path("infer", {"quantize_u8": 1, "conv_epilogue": EPILOGUES_PLAIN}):
         out = upscale_frames(params, frames)
     if (tuple(out.shape) != (4, 2 * HEIGHT, 2 * WIDTH, 3)
             or out.dtype != torch.uint8 or out.device.type != "cuda"):
@@ -1298,7 +1394,7 @@ def phase_train(torch, launches, work: Path):
     # one tail launch per batch of 8, as on the main path
     src, seeded = work / "src.y4m", work / "dst.y4m"
     dst = work / "dst_trained.y4m"
-    with launches.path("upscale_checkpoint", {"s2d_tail": FRAMES // 8}):
+    with launches.path("upscale_checkpoint", _s2d_cores(FRAMES // 8)):
         wall = _run_cli(cli, src, dst, "--checkpoint-dir", ckpt)
     hdr, out = _read_y4m(dst)
     if (hdr.width, hdr.height) != (2 * WIDTH, 2 * HEIGHT) or len(out) != FRAMES:
@@ -1362,7 +1458,7 @@ async def _drive_service(torch, launches, work: Path, clip: Path) -> dict:
     staged_name = base64.b64encode(b"clip.2x.y4m").decode()
     try:
         # 2 tail launches a job: 16 frames at batch 8
-        with launches.path("service", {"s2d_tail": SERVICE_JOBS * FRAMES // 8}):
+        with launches.path("service", _s2d_cores(SERVICE_JOBS * FRAMES // 8)):
             t0 = time.monotonic()
             for job in jobs:
                 broker.publish(schemas.DOWNLOAD_QUEUE, schemas.encode(
@@ -1604,7 +1700,7 @@ async def _drive_operator(launches, work: Path, clip: Path) -> dict:
         url = f"http://127.0.0.1:{runner.addresses[0][1]}"
         result = {"startup": (await _operator_cli(env, "status", "--help"))[0]}
         # 2 tail launches: 16 frames at batch 8
-        with launches.path("operator", {"s2d_tail": FRAMES // 8}):
+        with launches.path("operator", _s2d_cores(FRAMES // 8)):
             result["submit_wall"], result["submit"], _ = await _operator_cli(
                 env, "submit", "--id", OPERATOR_JOB, "--name", "Operator clip",
                 "--uri", uri, "--wait")
@@ -1793,7 +1889,7 @@ def phase_mesh(torch, launches, work: Path, fps: dict):
 
         engine._dispatch = counted
         try:
-            with launches.path(name, {"s2d_tail": engine.n_devices * dispatches}):
+            with launches.path(name, _s2d_cores(engine.n_devices * dispatches)):
                 got = stream(engine, data)
         finally:
             del engine._dispatch
@@ -1860,8 +1956,8 @@ def phase_mesh(torch, launches, work: Path, fps: dict):
     engine = FrameUpscaler()
     last = None
     for attempt in range(3):
-        last = measure_overlap(engine, height=720, width=1280)
-        _say(f"overlap probe at 720p, attempt {attempt + 1}: " + ", ".join(
+        last = measure_overlap(engine, height=720, width=1280, frame_interval=0.003)
+        _say(f"overlap probe at 720p, 3 ms a frame, attempt {attempt + 1}: " + ", ".join(
             f"{k} {v:.4f}" for k, v in last.items()))
         if last["overlap"] >= 0.5 and last["pipelined_s"] <= 0.85 * last["serial_s"]:
             break
@@ -1979,7 +2075,7 @@ def phase_orbax(torch, launches, card_line: str):
         data = src.read_bytes()
         engine = FrameUpscaler(checkpoint_dir=str(ckpt))
         engine.upscale_to(io.BytesIO(data), _Sink())  # warm-up
-        with launches.path("orbax", {"s2d_tail": FRAMES // 8}):
+        with launches.path("orbax", _s2d_cores(FRAMES // 8)):
             t0 = time.perf_counter()
             frames = engine.upscale_to(io.BytesIO(data), _Sink())
             torch.cuda.synchronize()
@@ -2068,7 +2164,9 @@ def main() -> int:
     for lib in sorted(libs):
         kernels.function(lib)
 
+    from downloader_tpu_torch.compute.models.upscaler import UpscalerConfig
     from downloader_tpu_torch.compute.ops.colorspace import fused_subpixel_ycc_s2d
+    from downloader_tpu_torch.compute.ops.conv_epilogue import conv_epilogue
     from downloader_tpu_torch.compute.ops.pixel_shuffle import quantize_u8
     from downloader_tpu_torch.compute.ops.s2d_head import s2d_head_kernel
 
@@ -2081,12 +2179,19 @@ def main() -> int:
                      "downloader_tpu/compute/ops/pixel_shuffle.py:75"),
         "s2d_head": (s2d_head_kernel, "s2d_head.cu",
                      "scripts/pallas_head_spike.py:35"),
+        # no Pallas kernel: XLA fused the bias, relu and residual into the conv
+        "conv_epilogue": (conv_epilogue, "conv_epilogue.cu",
+                          "downloader_tpu/compute/models/upscaler.py:75"),
     }
+    if UpscalerConfig().depth != EPILOGUES_S2D:
+        raise AssertionError(f"UpscalerConfig().depth is {UpscalerConfig().depth}: "
+                             f"EPILOGUES_S2D ({EPILOGUES_S2D}) is stale")
     launches = _Launches(torch, {k: v[0] for k, v in kernels_of.items()})
     results: dict = {}
     phase_quantize(torch, rates, results)                       # 2
     phase_tail(torch, rates, results)                           # 3
     phase_head(torch, rates, results)                           # 4
+    phase_epilogue(torch, rates, results)                       # 4b
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=REPO))
     try:
         engine = phase_main_path(torch, launches, work)          # 5

@@ -57,6 +57,8 @@ SIGNATURES = {
     "s2d_head": ("s2d_head_launch",
                  [_void_p, _void_p, _void_p, _void_p, _int, _int, _int, _int,
                   _void_p]),
+    "conv_epilogue": ("conv_epilogue_launch",
+                      [_void_p, _void_p, _void_p, _longlong, _int, _int, _void_p]),
 }
 
 

@@ -11,6 +11,13 @@ Rounding follows flax ``nn.Conv`` with ``dtype=compute_dtype``: input and
 kernel cast to the compute dtype, conv, output rounded to it, ``+ bias``
 in it, then ``relu`` and the residual ``+ x`` in it.  The bias is never
 passed into ``conv2d`` — cuDNN would add it before the output rounding.
+
+Those three steps after each conv are its epilogue
+(:mod:`..ops.conv_epilogue`).  While autograd records (the train step)
+they are PyTorch's own ops; with grad off (the engine and ``infer`` run
+under ``torch.inference_mode()``) a bf16 model runs them as one
+hand-written pass on the card, which gives the same bytes and has no
+backward.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.conv_epilogue import conv_epilogue, conv_epilogue_plain
 from ..ops.pixel_shuffle import pixel_shuffle
 
 
@@ -46,10 +54,14 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(c_out, dtype=dtype))
         self.padding = size // 2
 
-    def forward(self, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
-        """``x``: NCHW (channels_last) in ``compute_dtype``."""
+    def forward(self, x: torch.Tensor, compute_dtype: torch.dtype,
+                relu: bool = False, residual: Optional[torch.Tensor] = None,
+                epilogue=conv_epilogue_plain) -> torch.Tensor:
+        """``x``: NCHW (channels_last) in ``compute_dtype``.  The conv,
+        then ``epilogue`` on its output: the bias, and a relu and ``+
+        residual`` where asked (:mod:`..ops.conv_epilogue`)."""
         y = F.conv2d(x, self.weight.to(compute_dtype), None, padding=self.padding)
-        return y + self.bias.to(compute_dtype)[:, None, None]
+        return epilogue(y, self.bias.to(compute_dtype), relu, residual)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """flax's defaults: lecun-normal kernel (truncated normal at two
@@ -97,12 +109,22 @@ class Upscaler(nn.Module):
         body = [getattr(self, f"body_{i}") for i in range(self.config.depth - 1)]
         return [self.stem, *body, self.subpixel]
 
+    def _epilogue(self):
+        """PyTorch's ops while autograd records (the kernel has no
+        backward) or in a compute dtype other than bf16, else
+        :func:`conv_epilogue` (the kernel on the card)."""
+        if torch.is_grad_enabled() or self.config.compute_dtype != torch.bfloat16:
+            return conv_epilogue_plain
+        return conv_epilogue
+
     def _trunk_nchw(self, frames: torch.Tensor) -> torch.Tensor:
         dt = self.config.compute_dtype
+        epilogue = self._epilogue()
         x = frames.to(dt).permute(0, 3, 1, 2)
-        x = F.relu(self.stem(x, dt))
+        x = self.stem(x, dt, relu=True, epilogue=epilogue)
         for conv in self.convs()[1:-1]:
-            x = F.relu(conv(x, dt)) + x  # residual keeps deep stacks trainable
+            # residual keeps deep stacks trainable
+            x = conv(x, dt, relu=True, residual=x, epilogue=epilogue)
         return x
 
     def trunk(self, frames: torch.Tensor) -> torch.Tensor:
@@ -111,7 +133,8 @@ class Upscaler(nn.Module):
 
     def backbone(self, frames: torch.Tensor) -> torch.Tensor:
         x = self._trunk_nchw(frames)
-        return self.subpixel(x, self.config.compute_dtype).permute(0, 2, 3, 1)
+        return self.subpixel(x, self.config.compute_dtype,
+                             epilogue=self._epilogue()).permute(0, 2, 3, 1)
 
     def forward(self, frames: torch.Tensor) -> torch.Tensor:
         return pixel_shuffle(self.backbone(frames), self.config.scale)

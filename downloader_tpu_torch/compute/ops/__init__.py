@@ -1,1 +1,2 @@
-"""Upscaler ops: layout, colorspace, the s2d head and the quantize tail."""
+"""Upscaler ops: layout, colorspace, the conv epilogue, the s2d head and
+the quantize tail."""

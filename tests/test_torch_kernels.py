@@ -238,3 +238,163 @@ def test_train_step_on_the_card_matches_the_cpu_and_checkpoints_cross(
             assert torch.equal(state.model.state_dict()[name].cpu(), value.cpu())
         assert np.isfinite(float(step(state, low.to(device), high.to(device))))
         assert float(state.optimizer.state_dict()["state"][0]["step"]) == 3.0
+
+
+_EPILOGUE_VARIANTS = {"bias": (False, False), "relu": (True, False),
+                      "residual": (True, True)}
+
+
+def _epilogue_operand(shape, seed, device):
+    """A (B, H, W, C) bf16 tensor made on the card, viewed as (B, C, H,
+    W) channels_last: normal values with ~5% -0, ~5% +0 and ~2% NaN."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(shape, dtype=torch.bfloat16, generator=gen, device=device)
+    pick = torch.randint(0, 100, shape, dtype=torch.uint8, generator=gen, device=device)
+    x.masked_fill_(pick < 5, -0.0)
+    x.masked_fill_((pick >= 5) & (pick < 10), 0.0)
+    x.masked_fill_((pick >= 10) & (pick < 12), float("nan"))
+    return x.permute(0, 3, 1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (8, 1080, 1920, 128),   # a 1080p batch's body conv
+    (8, 540, 960, 128),     # a 540p batch's body conv
+    (8, 540, 960, 48),      # the x4 sub-pixel head: 6 groups of 8 a pixel
+    (3, 37, 53, 12),        # the x2 head on odd dims: the scalar variant
+])
+@pytest.mark.parametrize("variant", sorted(_EPILOGUE_VARIANTS))
+def test_conv_epilogue_kernel_matches_plain(cuda_device, variant, shape):
+    """Bit for bit the plain three ops on the card, +-0 and NaN included
+    (in the bias too), written in place over the conv output."""
+    from downloader_tpu_torch.compute.ops import conv_epilogue as tep
+
+    relu, residual = _EPILOGUE_VARIANTS[variant]
+    y = _epilogue_operand(shape, 20, cuda_device)
+    x = _epilogue_operand(shape, 21, cuda_device) if residual else None
+    b = _epilogue_operand((1, 1, 1, shape[-1]), 22, cuda_device).reshape(-1)
+    b[:3] = torch.tensor([-0.0, 0.0, float("nan")], dtype=torch.bfloat16)
+    want = tep.conv_epilogue_plain(y, b, relu, x)
+    out = y.clone()
+    before = tep.conv_epilogue.launches
+    got = tep.conv_epilogue(out, b, relu, x)
+    torch.cuda.synchronize()
+    assert tep.conv_epilogue.launches == before + 1
+    assert got.data_ptr() == out.data_ptr() and got.shape == y.shape
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_conv_epilogue_kernel_rejects_what_it_does_not_take(cuda_device):
+    from downloader_tpu_torch.compute.ops import conv_epilogue as tep
+
+    y = torch.zeros((2, 16, 4, 6), dtype=torch.bfloat16,
+                    device=cuda_device).contiguous(memory_format=torch.channels_last)
+    b = torch.zeros(16, dtype=torch.bfloat16, device=cuda_device)
+    before = tep.conv_epilogue.launches
+    for args in ((y.float(), b, True), (y, b.float(), True), (y, b, True, y.float())):
+        with pytest.raises(TypeError):
+            tep.conv_epilogue(*args)
+    for args in ((y.contiguous(), b, True),          # NCHW, not channels_last
+                 (y, b[:15], True),                  # a bias of another width
+                 (y, b.cpu(), True),                 # on another device
+                 (y, b, True, y[:1].clone()),        # a residual of another shape
+                 (y, b, True, y)):                   # the residual is y
+        with pytest.raises(ValueError):
+            tep.conv_epilogue(*args)
+    with pytest.raises(RuntimeError):                # autograd would lose the op
+        tep.conv_epilogue(y, b.clone().requires_grad_(), True)
+    # refused by the C entry, raised by kernels.check: a residual with no
+    # relu, and more channel groups than a block holds (1025 channels,
+    # not a multiple of 8, are 1025 groups of one)
+    wide = torch.zeros((1, 1025, 1, 1), dtype=torch.bfloat16,
+                       device=cuda_device).contiguous(memory_format=torch.channels_last)
+    for args in ((y, b, False, y.clone()),
+                 (wide, torch.zeros(1025, dtype=torch.bfloat16, device=cuda_device))):
+        with pytest.raises(RuntimeError, match="conv_epilogue"):
+            tep.conv_epilogue(*args)
+    assert tep.conv_epilogue.launches == before
+
+
+@pytest.mark.cuda
+def test_each_path_launches_the_epilogue_once_per_conv(cuda_device):
+    """Per ``_core``: 4 launches on the x2 4:2:0 path (stem and three body
+    convs; the s2d head adds its own bias), 5 on the generic tail (x4) and
+    on the odd-dims branch (the head too); none in a train step."""
+    from downloader_tpu_torch.compute.models.upscaler import UpscalerConfig
+    from downloader_tpu_torch.compute.ops.conv_epilogue import conv_epilogue
+    from downloader_tpu_torch.compute.pipeline import FrameUpscaler
+    from downloader_tpu_torch.compute.train import make_train_step
+
+    rng = np.random.default_rng(23)
+    for scale, (h, w), sub, want in ((2, (16, 24), 2, 4),   # s2d head and tail
+                                     (4, (16, 24), 2, 5),   # generic tail
+                                     (1, (15, 23), 1, 5)):  # odd dims
+        engine = FrameUpscaler(UpscalerConfig(scale=scale, features=16, depth=4),
+                               batch=2)
+        planes = [rng.integers(0, 256, (2, h, w), np.uint8)]
+        planes += [rng.integers(0, 256, (2, h // sub, w // sub), np.uint8)
+                   for _ in range(2)]
+        before = conv_epilogue.launches
+        engine.upscale_batch(*planes, sub, sub)
+        torch.cuda.synchronize()
+        assert conv_epilogue.launches - before == want, (scale, sub)
+    step, init = make_train_step(UpscalerConfig(features=16, depth=4),
+                                 device=cuda_device)
+    low = torch.rand((2, 8, 8, 3), device=cuda_device)
+    before = conv_epilogue.launches
+    step(init(0), low, low.repeat_interleave(2, 1).repeat_interleave(2, 2))
+    torch.cuda.synchronize()
+    assert conv_epilogue.launches == before
+
+
+def _y4m_clip(width, height, frames, seed) -> bytes:
+    import io
+
+    from downloader_tpu_torch.compute.video import Y4MHeader, Y4MWriter
+
+    rng = np.random.default_rng(seed)
+    buf = io.BytesIO()
+    hdr = Y4MHeader(width=width, height=height, colorspace="420jpeg")
+    writer = Y4MWriter(buf, hdr)
+    for _ in range(frames):
+        writer.write_frame(rng.integers(0, 256, (height, width), np.uint8),
+                           rng.integers(0, 256, hdr.chroma_shape, np.uint8),
+                           rng.integers(0, 256, hdr.chroma_shape, np.uint8))
+    return buf.getvalue()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale, width, height", [(2, 1920, 1080), (4, 960, 540)])
+@pytest.mark.parametrize("listed", [1, 2])
+def test_engine_stream_keeps_the_three_op_bytes(cuda_device, monkeypatch, scale,
+                                                width, height, listed):
+    """16 frames through ``upscale_to`` at full width, on ``cuda:0``
+    listed once or twice: the epilogue kernel gives the stream the three
+    PyTorch ops (the model before the kernel) give in its place."""
+    import io
+
+    from downloader_tpu_torch.compute.models import upscaler as tup
+    from downloader_tpu_torch.compute.ops.conv_epilogue import (
+        conv_epilogue,
+        conv_epilogue_plain,
+    )
+    from downloader_tpu_torch.compute.pipeline import FrameUpscaler
+
+    config = tup.UpscalerConfig(scale=scale)
+    params = tup.Upscaler(config, seed=scale).state_dict()
+    gen = torch.Generator().manual_seed(scale)
+    for name, value in params.items():
+        if name.endswith("bias"):  # the seeded init's are zero
+            value.normal_(0.0, 0.05, generator=gen)
+    engine = FrameUpscaler(config, params=params, devices=["cuda:0"] * listed)
+    clip = _y4m_clip(width, height, 16, seed=scale)
+    fused, plain = io.BytesIO(), io.BytesIO()
+    before = conv_epilogue.launches
+    assert engine.upscale_to(io.BytesIO(clip), fused) == 16
+    assert conv_epilogue.launches - before == 2 * listed * (4 if scale == 2 else 5)
+    monkeypatch.setattr(tup, "conv_epilogue", conv_epilogue_plain)
+    before = conv_epilogue.launches
+    assert engine.upscale_to(io.BytesIO(clip), plain) == 16
+    assert conv_epilogue.launches == before
+    assert fused.getvalue() == plain.getvalue()
