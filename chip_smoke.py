@@ -152,7 +152,24 @@ Phases, each failing the run (non-zero exit) on any error:
    each resumes from step 3 and leaves orbax step 3 beside the port's
    step 6, and the losses of steps 4 and 6 agree within 1e-3.
 
-Every path of phases 5-10, 12, 13, 14, 15 and 17 runs with every kernel's launch counter set to
+18. SwinIR-M x4 real-world (the benchmark's ``swinir-m-x4-real``
+   configuration and seeded weights): 2 batches of 8 seeded 960x540 4:2:0
+   frames through the engine's ``upscale_batch`` to 3840x2160, timed
+   with peak memory; the first and last frame of each batch against the
+   plain float32 reference (``portbench/reference/swinir.py``) within
+   the ``swinir-x4-540p-stream`` cell's limits; then one batch under the
+   profiler, printing the attention kernel's name and its launches per
+   batch.  Then, at those seeded weights the attention is near uniform
+   and the bias small, so one 960x540 frame runs again on weights where
+   both matter (bias tables of std 2, qkv kernels of unit gain): the
+   model's output (f32 RGB, before quantizing) against the plain
+   reference's, and against the reference's with the bias or the shift
+   mask left out; the port's worst 32x32-tile mean gap must be under a
+   third of the smaller of the other two, so a card path that lost the
+   bias or misread the mask fails.  ``python3 chip_smoke.py swinir``
+   runs phases 1 and 18 alone.
+
+Every path of phases 5-10, 12, 13, 14, 15, 17 and 18 runs with every kernel's launch counter set to
 0 just before it and read just after; each count must be the one the
 path implies (e.g. 3 standalone quantizes per generic-tail batch, 0 head
 kernels on the engine's paths, an epilogue per conv of each batch's
@@ -2122,6 +2139,132 @@ def phase_orbax(torch, launches, card_line: str):
     _say(f"orbax phase: {time.monotonic() - t_phase:.1f} s")
 
 
+SWINIR_BATCHES, SWINIR_SEED = 2, 2**31 + 27
+
+
+def _kernel_times(torch, prof) -> list:
+    """(device ms, launches, name) of the profiled kernels, longest
+    first."""
+    rows = []
+    for event in prof.key_averages():
+        ms = getattr(event, "device_time_total", getattr(event, "cuda_time_total", 0)) / 1e3
+        if ms > 0 and event.count:
+            rows.append((ms, event.count, event.key))
+    return sorted(rows, reverse=True)
+
+
+def phase_swinir(torch, launches):
+    """Phase 18 (module docstring): the second architecture through the
+    engine, against the benchmark's plain reference."""
+    from downloader_tpu_torch.compute.pipeline import FrameUpscaler
+    from portbench.reference import swinir as reference
+    from portbench.seeded import frames
+    from portbench.traffic.stream import compare
+    from portbench.traffic.stream_arch import swinir_config, swinir_weights
+
+    t_phase = time.monotonic()
+    config = json.loads((REPO / "portbench" / "configs" / "swinir-m-x4-real.json")
+                        .read_text())
+    cell = json.loads((REPO / "portbench" / "workloads" / "swinir-x4-540p-stream.json")
+                      .read_text())
+    limits = {k: v["limit"] for k, v in cell["checks"].items()}
+    width, height, batch = 960, 540, config["batch"]
+    weights = swinir_weights(config, SWINIR_SEED, "cuda")
+    engine = FrameUpscaler(swinir_config(config), batch=batch, params=weights)
+    planes = frames(SWINIR_BATCHES * batch, height, width, 2, SWINIR_SEED + 1, "cuda")
+    host = [p.cpu().numpy() for p in planes]
+    torch.cuda.reset_peak_memory_stats()
+    outs, times = [], []
+    with launches.path("swinir", {"quantize_u8": 3 * SWINIR_BATCHES}):
+        for b in range(SWINIR_BATCHES):
+            rows = slice(b * batch, (b + 1) * batch)
+            t0 = time.monotonic()
+            outs.append(engine.upscale_batch(*(p[rows] for p in host), 2, 2))
+            times.append(time.monotonic() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    if outs[0][0].shape != (batch, 4 * height, 4 * width):
+        raise AssertionError(f"swinir output {outs[0][0].shape}")
+    _say(f"swinir: {SWINIR_BATCHES} batches of {batch} 960x540 -> 3840x2160 in "
+         + ", ".join(f"{t:.3f}" for t in times) + f" s; peak {peak / 2**30:.2f} GiB")
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        engine.upscale_batch(*(p[:batch] for p in host), 2, 2)
+        torch.cuda.synchronize()
+    kernels = _kernel_times(torch, prof)
+    attention = [k for k in kernels if any(tag in k[2].lower() for tag in (
+        "fmha", "flash", "attention", "sdpa", "attn"))]
+    _say("swinir top device ops (ms, launches, name): "
+         + json.dumps([(round(ms, 3), n, name[:120]) for ms, n, name in kernels[:12]]))
+    if not attention:
+        raise AssertionError("no attention kernel in the profiled batch")
+    for ms, n, name in attention:
+        _say(f"swinir attention kernel: {name} ({n} launches per batch, {ms:.2f} ms)")
+    del engine
+    torch.cuda.empty_cache()
+    worst = {"worst_mae": 0.0, "worst_step": 0.0}
+    for b in range(SWINIR_BATCHES):
+        for i in (0, batch - 1):
+            j = b * batch + i
+            want = reference.upscale(weights, *(p[j:j + 1] for p in planes), config)
+            gaps = compare([o[i] for o in outs[b]], [w[0].cpu().numpy() for w in want])
+            worst = {k: max(worst[k], gaps[k]) for k in worst}
+    _say(f"swinir vs the plain reference: {worst} (limits {limits})")
+    if any(worst[k] > limits[k] for k in worst):
+        raise AssertionError(f"swinir outside the cell's limits: {worst}")
+    _swinir_attention_matters(torch, config, weights, planes)
+    _say(f"swinir phase: {time.monotonic() - t_phase:.1f} s")
+
+
+def _swinir_attention_matters(torch, config: dict, weights: dict, planes) -> None:
+    """Phase 18's second check (module docstring): one frame on weights
+    where the bias and the shift mask move the output."""
+    import dataclasses
+
+    _tests_on_path()
+    import plain_swinir
+    from downloader_tpu_torch.compute.models import build_model
+    from downloader_tpu_torch.compute.pipeline import no_tf32
+    from portbench.reference.upscaler import unit_rgb
+    from portbench.traffic.stream_arch import swinir_config
+
+    device = planes[0].device
+    g = torch.Generator(device=device).manual_seed(SWINIR_SEED + 2)
+    sharp = dict(weights)
+    for name, value in weights.items():
+        if name.endswith("relative_position_bias_table"):
+            sharp[name] = torch.randn(value.shape, generator=g, device=device) * 2.0
+        elif name.endswith("attn.qkv.weight"):
+            sharp[name] = torch.randn(value.shape, generator=g,
+                                      device=device) / math.sqrt(value.shape[1])
+    cfg = swinir_config(config)
+    model = build_model(cfg)
+    model.load_state_dict(sharp)
+    model = model.to(device).eval()
+    rgb = unit_rgb(*(p[:1] for p in planes))
+    with torch.inference_mode():
+        port = model(rgb.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+    del model
+    plain = dataclasses.asdict(dataclasses.replace(cfg, compute_dtype=torch.float32))
+
+    def reference(leave_out=()):
+        with no_tf32(), torch.inference_mode():
+            return plain_swinir.forward(sharp, rgb, plain, leave_out)
+
+    def gap(a, b):
+        d = (a - b).abs().mean(1, keepdim=True)
+        return torch.nn.functional.avg_pool2d(d, 32, ceil_mode=True).max().item()
+
+    want = reference()
+    gaps = {"port": gap(port, want),
+            "bias_left_out": gap(reference(["bias"]), want),
+            "shift_mask_left_out": gap(reference(["shift_mask"]), want)}
+    _say(f"swinir at bias std 2, unit-gain qkv (worst 32x32-tile mean gap to the "
+         f"plain reference, output std {want.std().item():.3f}): {gaps}")
+    if gaps["port"] * 3 > min(gaps["bias_left_out"], gaps["shift_mask_left_out"]):
+        raise AssertionError(f"swinir's attention on the card is not the reference's: "
+                             f"{gaps}")
+
+
 def _stack_planes(data: bytes, batch: int):
     """The first ``batch`` frames of a Y4M stream as stacked planes."""
     import numpy as np
@@ -2132,7 +2275,7 @@ def _stack_planes(data: bytes, batch: int):
     return [np.stack([f[i] for f in frames]) for i in range(3)]
 
 
-def main() -> int:
+def main(argv=()) -> int:
     if not (REPO / "downloader_tpu_torch" / "compute" / "csrc").is_dir():
         print("chip_smoke: the downloader_tpu_torch package is not beside "
               "this script", file=sys.stderr)
@@ -2187,6 +2330,12 @@ def main() -> int:
         raise AssertionError(f"UpscalerConfig().depth is {UpscalerConfig().depth}: "
                              f"EPILOGUES_S2D ({EPILOGUES_S2D}) is stale")
     launches = _Launches(torch, {k: v[0] for k, v in kernels_of.items()})
+    if list(argv) == ["swinir"]:
+        phase_swinir(torch, launches)                           # 18
+        _say(card_line)
+        _say(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        return 0
     results: dict = {}
     phase_quantize(torch, rates, results)                       # 2
     phase_tail(torch, rates, results)                           # 3
@@ -2214,6 +2363,8 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     phase_lint()                                                # 16
     phase_orbax(torch, launches, card_line)                     # 17
+    torch.cuda.empty_cache()
+    phase_swinir(torch, launches)                               # 18
 
     line = {"kernels": []}
     for k, (_, source, replaces) in kernels_of.items():
@@ -2237,4 +2388,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

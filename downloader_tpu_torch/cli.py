@@ -19,6 +19,7 @@ reference's ``cli.py`` on the port's service, and the compute plane's
     python -m downloader_tpu_torch scrub [--json] [--local-only]
     python -m downloader_tpu_torch watch [--id my-movie]
     python -m downloader_tpu_torch upscale in.y4m out.y4m [--batch N] \
+        [--model espcn|swinir-m-x4-real] \
         [--checkpoint-dir DIR] [--device cuda|cpu] [--decode/--decoder BIN] \
         [--encode/--encoder BIN] [--encode-arg ARG ...]
     python -m downloader_tpu_torch train --data MEDIA [--steps N] [--batch N] \
@@ -393,7 +394,15 @@ def _build_parser() -> argparse.ArgumentParser:
     )
     upscale.add_argument("src", help="input .y4m path (any container "
                                      "with --decode)")
-    upscale.add_argument("dst", help="output .y4m path (2x dimensions)")
+    upscale.add_argument("dst", help="output .y4m path (2x dimensions; 4x "
+                                     "with swinir-m-x4-real)")
+    # compute.models.MODELS, spelled out: building the parser imports no torch
+    upscale.add_argument("--model", choices=("espcn", "swinir-m-x4-real"),
+                         default="espcn",
+                         help="espcn (default: the ESPCN-style x2 upscaler) "
+                              "or swinir-m-x4-real (SwinIR-M x4 real-world, "
+                              "served only, seeded weights; takes no "
+                              "--checkpoint-dir)")
     upscale.add_argument("--checkpoint-dir", default=None,
                          help="checkpoint dir written by the train command "
                               "of this package or of the JAX package (its "
@@ -1428,6 +1437,7 @@ async def _scrape(args) -> int:
 def _upscale(args) -> int:
     import shutil
 
+    from .compute.models import model_config
     from .compute.pipeline import FrameUpscaler
     from .compute.transcode import DEFAULT_ENCODE_ARGS, transcode
 
@@ -1447,7 +1457,8 @@ def _upscale(args) -> int:
         if encoder is None:
             print(f"encoder {name!r} not found on PATH", file=sys.stderr)
             return 2
-    upscaler = FrameUpscaler(batch=args.batch, device=args.device,
+    upscaler = FrameUpscaler(config=model_config(args.model), batch=args.batch,
+                             device=args.device,
                              checkpoint_dir=args.checkpoint_dir)
     try:
         # transcode writes through a private temp and renames onto dst

@@ -30,22 +30,24 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from .models.upscaler import Upscaler, UpscalerConfig
+from .models import ModelConfig, build_model
+from .models.upscaler import UpscalerConfig
 from .ops.pixel_shuffle import quantize_u8
 from .parallel.mesh import block, gather_global, place, shard_batch
 from .pipeline import no_tf32
 
 
 @functools.lru_cache(maxsize=4)
-def _model(config: UpscalerConfig,
-           device: torch.device) -> Tuple[Upscaler, threading.Lock]:
-    """The module shared by every caller of one (config, device), and the
-    lock that serialises the calls that swap their params into it."""
-    return (Upscaler(config).to(device).eval().requires_grad_(False),
+def _model(config: ModelConfig,
+           device: torch.device) -> Tuple[torch.nn.Module, threading.Lock]:
+    """The module shared by every caller of one (config, device), built
+    from the config's type (:func:`.models.build_model`), and the lock
+    that serialises the calls that swap their params into it."""
+    return (build_model(config).to(device).eval().requires_grad_(False),
             threading.Lock())
 
 
-def _forward(config: UpscalerConfig, params: Mapping[str, torch.Tensor],
+def _forward(config: ModelConfig, params: Mapping[str, torch.Tensor],
              frames: torch.Tensor, dev: torch.device) -> torch.Tensor:
     model, lock = _model(config, dev)
     weights = {k: v.to(dev) for k, v in params.items()}
@@ -55,12 +57,13 @@ def _forward(config: UpscalerConfig, params: Mapping[str, torch.Tensor],
     return quantize_u8((out.float() * 255.0).contiguous())
 
 
-def make_infer_fn(config: UpscalerConfig = UpscalerConfig(), device=None,
+def make_infer_fn(config: ModelConfig = UpscalerConfig(), device=None,
                   mesh=None) -> Callable:
     """Returns ``infer(params, frames_u8) -> upscaled_u8``.
 
-    ``params`` is a state dict of :class:`~.models.upscaler.Upscaler`
-    (e.g. :func:`~.weights.from_flax` of a flax tree); ``frames_u8`` is
+    ``params`` is a state dict of the config's model (for
+    :class:`~.models.upscaler.Upscaler` e.g. :func:`~.weights.from_flax`
+    of a flax tree); ``frames_u8`` is
     (B, H, W, C) uint8, a tensor or a numpy array; the result is (B,
     H*scale, W*scale, C) uint8 on the device.  The model is built once
     per (config, device); each call runs it on ``params`` as given,
@@ -121,7 +124,7 @@ def make_infer_fn(config: UpscalerConfig = UpscalerConfig(), device=None,
 
 
 def upscale_frames(params: Mapping[str, torch.Tensor], frames_u8,
-                   config: UpscalerConfig = UpscalerConfig(),
+                   config: ModelConfig = UpscalerConfig(),
                    device=None) -> torch.Tensor:
     """Convenience wrapper around :func:`make_infer_fn`."""
     return make_infer_fn(config, device)(params, frames_u8)

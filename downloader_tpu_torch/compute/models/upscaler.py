@@ -44,6 +44,13 @@ class UpscalerConfig:
     compute_dtype: torch.dtype = torch.bfloat16
 
 
+def tile_halo(depth: int) -> int:
+    """Receptive radius (depth+2) rounded up to even, +2 margin: how far
+    past a tile's kept region the engine reads its input."""
+    r = depth + 4
+    return r + (r % 2)
+
+
 class Conv(nn.Module):
     """A SAME conv holding an OIHW ``weight`` and a ``bias``, applied in
     flax's rounding order (module docstring)."""
@@ -104,6 +111,12 @@ class Upscaler(nn.Module):
         generator = torch.Generator().manual_seed(0 if seed is None else seed)
         for conv in self.convs():
             conv.reset_parameters(generator)
+
+    @property
+    def halo(self) -> int:
+        """How far the output depends on the input (the engine's tile
+        halo)."""
+        return tile_halo(self.config.depth)
 
     def convs(self) -> List[Conv]:
         body = [getattr(self, f"body_{i}") for i in range(self.config.depth - 1)]

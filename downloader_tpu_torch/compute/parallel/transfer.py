@@ -81,6 +81,47 @@ class HopSink:
             sink(hop, nbytes, seconds)
 
 
+class DeviceSpans:
+    """CUDA timing events around named parts of a model's forward, for
+    the engine to bill as hops of their own (``attention``).
+
+    A model holds one and brackets a part with :meth:`span`; the engine
+    calls :meth:`start` before a shard's launches and :meth:`stop` after
+    them, and notes the events' elapsed time once the batch is fetched.
+    Events are recorded only between the two, on the thread that
+    started, and only on CUDA, so an unbound run pays one attribute
+    read per part.  A deep copy (a replica) starts with nothing
+    recorded."""
+
+    def __init__(self) -> None:
+        self._local = threading.local()
+
+    def __deepcopy__(self, memo) -> "DeviceSpans":
+        return DeviceSpans()
+
+    def start(self) -> None:
+        self._local.events = []
+
+    def stop(self) -> list:
+        """The (hop, nbytes, start event, end event) recorded since
+        :meth:`start`."""
+        events = getattr(self._local, "events", None) or []
+        self._local.events = None
+        return events
+
+    @contextlib.contextmanager
+    def span(self, hop: str, nbytes: int, device: torch.device):
+        events = getattr(self._local, "events", None)
+        if events is None or device.type != "cuda":
+            yield
+            return
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        yield
+        end.record()
+        events.append((hop, nbytes, start, end))
+
+
 class Billed:
     """The bytes a :func:`timed_hop` block bills; a block that learns its
     bytes only as it runs (a read, a synchronous compute) sets them."""

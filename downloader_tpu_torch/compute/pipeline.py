@@ -13,6 +13,11 @@ Every branch of the reference's ``core`` (``pipeline.py:232-261``) runs:
   full forward, RGB->YCbCr, chroma downsample and three standalone
   quantizes.
 
+The first two need the ESPCN model's ``trunk``/``subpixel``/``backbone``;
+any other model (SwinIR, :mod:`.models.swinir`) takes the generic tail
+at every scale and subsampling.  The engine builds its model from the
+config's type (:func:`.models.build_model`).
+
 The tails' quantizes launch the CUDA kernels on the card, at every
 scale.
 
@@ -21,7 +26,10 @@ tiles of very large frames into the batch dim when ``PIXEL_BUDGET``
 starves the dispatch batch below ``TARGET_FRAMES`` (4K at batch 2 runs as
 32 tiles of 556x976), runs the branch above on them and stitches the
 kept regions.  The halo covers the receptive radius and the outer tiles
-sit on the frame edges, so the result is the untiled one.
+sit on the frame edges, so the result is the untiled one.  The model
+says how far its output depends on its input (``halo``); one with no
+finite halo (SwinIR) is never tiled, and :meth:`FrameUpscaler.batch_for`
+alone caps its dispatch.
 
 PyTorch runs eagerly, so on one device the reference's static-shape
 padding of the last short batch is not needed: every batch runs at its
@@ -70,7 +78,12 @@ the card; on the CPU, the synchronous model step), ``d2h`` (the wait on
 the download streams) and ``write`` (the sink's own writes of the views)
 into :attr:`FrameUpscaler.hop_sink`, and, while a sink is bound,
 ``device``: the card's seconds for the batch, the longest shard's, from
-timing events around its compute.
+timing events around its compute.  A model that brackets parts of its
+forward with :class:`~.parallel.transfer.DeviceSpans` (``spans``: SwinIR's
+``attention``) has each part billed the same way, as a hop of its name:
+the summed seconds of a shard's spans, the longest shard's, and the bytes
+of all (SwinIR also brackets the build of a new frame size's attention
+mask, ``mask``).
 """
 
 from __future__ import annotations
@@ -87,7 +100,10 @@ import torch
 
 from .. import resolve_device
 from .checkpoint import restore_state
-from .models.upscaler import Upscaler, UpscalerConfig
+from .models import ModelConfig, build_model, require_trainable
+# graftlint: disable=unused-import -- tests import Upscaler and _tile_halo from here
+from .models.upscaler import Upscaler, UpscalerConfig  # noqa: F401
+from .models.upscaler import tile_halo as _tile_halo  # noqa: F401
 from .ops.colorspace import (
     downsample_chroma,
     fused_subpixel_ycc,
@@ -109,12 +125,6 @@ from .video import Y4MError, Y4MHeader, Y4MReader, Y4MWriter
 
 TARGET_FRAMES = 8
 TILE_MIN_PX = 1920 * 1080
-
-
-def _tile_halo(depth: int) -> int:
-    """Receptive radius (depth+2) rounded up to even, +2 margin."""
-    r = depth + 4
-    return r + (r % 2)
 
 
 def _tile_grid(height: int, width: int, sub_h: int, sub_w: int,
@@ -216,6 +226,8 @@ class _InFlight:
     # per shard, the timing event before its compute (only while a hop
     # sink is bound; ``computed`` is then timing-enabled too)
     started: List[torch.cuda.Event] = dataclasses.field(default_factory=list)
+    # per shard, the model's timed spans (hop, nbytes, start, end)
+    spans: List[list] = dataclasses.field(default_factory=list)
 
 
 class FrameUpscaler:
@@ -229,7 +241,7 @@ class FrameUpscaler:
 
     def __init__(
         self,
-        config: UpscalerConfig = UpscalerConfig(),
+        config: ModelConfig = UpscalerConfig(),
         batch: int = 8,
         params: Optional[Mapping[str, torch.Tensor]] = None,
         seed: int = 0,
@@ -238,12 +250,16 @@ class FrameUpscaler:
         use_mesh: bool = True,
         devices: Optional[Sequence] = None,
     ):
-        """``params`` is a state dict of :class:`Upscaler` (e.g. from
-        :func:`..weights.from_flax`); ``checkpoint_dir`` a directory the
+        """``config`` picks the model (:func:`.models.build_model`).
+        ``params`` is a state dict of it (for the ESPCN ``Upscaler`` e.g.
+        from :func:`..weights.from_flax`; for SwinIR an official one);
+        ``checkpoint_dir`` a directory the
         trainer of either package saved to, whose latest step's params
         are loaded (its
         optimizer state is ignored; a missing, foreign or mismatched
-        checkpoint raises, as :func:`..checkpoint.restore_state` does).
+        checkpoint raises, as :func:`..checkpoint.restore_state` does;
+        the trainer fits the ESPCN model only, so another model's
+        config raises).
         Without either the model is seeded from ``seed``.  ``device``
         defaults to CUDA and raises without a GPU; pass ``"cpu"`` for the
         plain PyTorch path.  ``use_mesh`` spreads the batch over every
@@ -251,6 +267,8 @@ class FrameUpscaler:
         the devices instead, repeats allowed."""
         if params is not None and checkpoint_dir is not None:
             raise ValueError("pass params or checkpoint_dir, not both")
+        if checkpoint_dir is not None:
+            require_trainable(config)
         if devices is not None:
             devices = [_indexed(resolve_device(d)) for d in devices]
             if not devices:
@@ -263,7 +281,7 @@ class FrameUpscaler:
         self.devices: List[torch.device] = devices
         self.device = devices[0]
         self.config = config
-        model = Upscaler(config, seed=seed)
+        model = build_model(config, seed=seed)
         if checkpoint_dir is not None:
             _step, params, _opt = restore_state(checkpoint_dir, model.state_dict())
         if params is not None:
@@ -297,8 +315,10 @@ class FrameUpscaler:
         """The (rows, cols) tile grid a dispatch of (height, width) frames
         runs at; (1, 1) = untiled.  Decided, as the reference does, on
         the per-device dispatch batch :meth:`batch_for` gives."""
-        return _tile_grid(height, width, sub_h, sub_w,
-                          _tile_halo(self.config.depth),
+        halo = self.model.halo
+        if halo is None:
+            return (1, 1)
+        return _tile_grid(height, width, sub_h, sub_w, halo,
                           batch=self.batch_for(height, width) // self.n_devices)
 
     def _unit_rgb(self, y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
@@ -307,7 +327,7 @@ class FrameUpscaler:
                                  upsample_chroma(cb.float(), sub_h, sub_w),
                                  upsample_chroma(cr.float(), sub_h, sub_w))
 
-    def _model_on(self, device: torch.device) -> Upscaler:
+    def _model_on(self, device: torch.device):
         """The replica on ``device``."""
         return self._replicas[device]
 
@@ -334,7 +354,7 @@ class FrameUpscaler:
         (or tiled) frames."""
         scale = self.config.scale
         rgb = self._unit_rgb(y, cb, cr, sub_h, sub_w)
-        if (sub_h, sub_w) == (scale, scale):
+        if (sub_h, sub_w) == (scale, scale) and hasattr(self.model, "trunk"):
             if y.shape[1] % 2 == 0 and y.shape[2] % 2 == 0:
                 return fused_subpixel_ycc_s2d(self._s2d_head(rgb), scale)
             # odd frame dims: the fused sub-pixel tail on the plain head
@@ -355,7 +375,7 @@ class FrameUpscaler:
         """Cut halo'd tiles, fold them into the batch dim (tile-major),
         run :meth:`_branch` once, crop the halos and stitch."""
         height, width = y.shape[1], y.shape[2]
-        halo = _tile_halo(self.config.depth)
+        halo = self.model.halo
         scale = self.config.scale
         h_anchors = _tile_anchors(height, rows, halo)
         w_anchors = _tile_anchors(width, cols, halo)
@@ -446,11 +466,16 @@ class FrameUpscaler:
         with timed_hop(self.hop_sink, "launch", nbytes):
             for i, (device, planes_i) in enumerate(zip(self.devices, dev)):
                 with torch.cuda.device(device):
+                    spans = getattr(self._model_on(device), "spans", None) if timed else None
                     if timed:
                         started = torch.cuda.Event(enable_timing=True)
                         started.record()
                         handle.started.append(started)
+                    if spans is not None:
+                        spans.start()
                     out = self._core(*planes_i, sub_h, sub_w)
+                    if spans is not None:
+                        handle.spans.append(spans.stop())
                     computed = torch.cuda.Event(enable_timing=timed)
                     computed.record()
                     if handle.outputs is None:
@@ -475,10 +500,11 @@ class FrameUpscaler:
         """Materialize one dispatched batch, billing ``compute`` as the
         wait for every shard's compute event, ``device`` as the longest
         shard's compute on its card (timed while a sink was bound at
-        dispatch) and ``d2h`` as the wait for the download streams'
-        copies (mostly done by then: they ran beside the next batch's
-        compute); on the CPU ``d2h`` is the conversion to numpy.  The
-        padding is dropped."""
+        dispatch), the model's timed spans by hop name (the longest
+        shard's summed seconds) and ``d2h`` as the wait for the download
+        streams' copies (mostly done by then: they ran beside the next
+        batch's compute); on the CPU ``d2h`` is the conversion to numpy.
+        The padding is dropped."""
         nbytes = sum(int(t.numel()) for t in handle.outputs)
         if handle.computed:  # on the CPU compute was billed at dispatch
             with timed_hop(self.hop_sink, "compute", nbytes):
@@ -488,6 +514,8 @@ class FrameUpscaler:
                 self.hop_sink.note("device", nbytes, max(
                     start.elapsed_time(end)
                     for start, end in zip(handle.started, handle.computed)) / 1e3)
+            for hop, (nbytes_hop, seconds) in _span_hops(handle.spans).items():
+                self.hop_sink.note(hop, nbytes_hop, seconds)
         with timed_hop(self.hop_sink, "d2h", nbytes):
             for event in handle.copied:
                 event.synchronize()
@@ -561,6 +589,21 @@ class FrameUpscaler:
         for result in queue.drain():
             write_out(result)
         return frames
+
+
+def _span_hops(shards: List[list]) -> dict:
+    """hop -> (bytes of every shard's spans, the longest shard's summed
+    seconds) of a batch's timed spans (:class:`DeviceSpans`)."""
+    out: dict = {}
+    for shard in shards:
+        seconds: dict = {}
+        for hop, nbytes, start, end in shard:
+            seconds[hop] = seconds.get(hop, 0.0) + start.elapsed_time(end) / 1e3
+            total, longest = out.get(hop, (0, 0.0))
+            out[hop] = (total + nbytes, longest)
+        for hop, s in seconds.items():
+            out[hop] = (out[hop][0], max(out[hop][1], s))
+    return out
 
 
 def _write_frame(fh, hdr: Y4MHeader, y: np.ndarray, cb: np.ndarray,

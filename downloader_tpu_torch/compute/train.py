@@ -42,6 +42,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
+from .models import require_trainable
 from .models.upscaler import Upscaler, UpscalerConfig
 from .parallel.mesh import MeshPlan, shard_params
 from .pipeline import no_tf32
@@ -80,7 +81,9 @@ def make_train_step(config: UpscalerConfig = UpscalerConfig(),
     low_res, high_res)`` takes (B, h, w, 3) and (B, h*scale, w*scale, 3)
     tensors on that device, updates ``state`` in place and returns the
     step's loss (computed before the update) as a 0-d f32 device tensor.
-    ``device`` defaults to CUDA and raises without a GPU."""
+    ``device`` defaults to CUDA and raises without a GPU.  A model that is
+    served only (SwinIR) raises."""
+    require_trainable(config)
     dev = resolve_device(device)
 
     def train_step(state: TrainState, low_res: torch.Tensor,
@@ -230,7 +233,9 @@ def compile_train_step(config: UpscalerConfig = UpscalerConfig(),
     the plan, and ``step(state, low_res, high_res)`` takes this rank's
     rows (:func:`~.parallel.mesh.shard_batch`) and returns the loss of
     the whole batch.  A plan of one process over several devices raises:
-    training is one process per device."""
+    training is one process per device; so does a model that is served
+    only (SwinIR)."""
+    require_trainable(config)
     if mesh is not None and mesh.mesh is not None:
         if device is not None and resolve_device(device).type != mesh.device.type:
             raise ValueError(f"device {device} is not the plan's {mesh.device}")

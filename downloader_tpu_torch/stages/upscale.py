@@ -40,6 +40,10 @@ What differs from the reference, all in ``instance.upscale``:
   device.
 - ``donate`` is read and is a no-op: buffer donation has no meaning in
   eager PyTorch.
+- ``model``: ``espcn`` (the default, the ESPCN-style upscaler that
+  ``scale``/``features``/``depth`` shape) or ``swinir-m-x4-real``
+  (SwinIR-M x4 real-world, :mod:`..compute.models.swinir`): served only,
+  so it takes no ``checkpoint``; outputs are named ``.4x``.
 - ``checkpoint`` names a directory written by the port's own ``train``
   or by the JAX package's (its orbax steps, read by the port's
   ``restore_state``); a step it cannot read raises the ``ValueError``
@@ -80,6 +84,18 @@ def _device(value) -> str:
     return device
 
 
+def _model(value) -> str:
+    """``instance.upscale.model``: one of :data:`..compute.models.MODELS`;
+    anything else fails the stage's load, at boot."""
+    from ..compute.models import MODELS
+
+    model = str(value)
+    if model not in MODELS:
+        raise ValueError(f"instance.upscale.model must be one of "
+                         f"{', '.join(MODELS)}, got {model!r}")
+    return model
+
+
 def _engine_config(config):
     """Read ``instance.upscale.*`` with safe defaults."""
     from ..platform.config import cfg_get
@@ -90,6 +106,8 @@ def _engine_config(config):
     from ..compute.transcode import DEFAULT_ENCODE_ARGS
 
     return {
+        # scale, features and depth shape the espcn model only
+        "model": _model(opt("model", "espcn")),
         "scale": int(opt("scale", 2)),
         "features": int(opt("features", 128)),
         "depth": int(opt("depth", 4)),
@@ -110,6 +128,14 @@ def _engine_config(config):
     }
 
 
+def _model_config(opts):
+    """The selected model's configuration (its ``scale`` names outputs)."""
+    from ..compute.models import model_config
+
+    return model_config(opts["model"], scale=opts["scale"],
+                        features=opts["features"], depth=opts["depth"])
+
+
 def upscale_enabled(config) -> bool:
     """True when ``instance.upscale.enabled`` is set (app.py gating)."""
     from ..platform.config import cfg_get
@@ -122,16 +148,11 @@ def _get_engine(ctx: StageContext):
     with _ENGINE_LOCK:  # concurrent jobs must share one engine/params copy
         engine = ctx.resources.get(_ENGINE_KEY)
         if engine is None:
-            from ..compute.models.upscaler import UpscalerConfig
             from ..compute.pipeline import FrameUpscaler
 
             opts = _engine_config(ctx.config)
             engine = FrameUpscaler(
-                config=UpscalerConfig(
-                    scale=opts["scale"],
-                    features=opts["features"],
-                    depth=opts["depth"],
-                ),
+                config=_model_config(opts),
                 batch=opts["batch"],
                 checkpoint_dir=opts["checkpoint"],
                 use_mesh=opts["use_mesh"],
@@ -202,7 +223,7 @@ async def stage_factory(ctx: StageContext) -> StageFn:
                             encoder=opts["encoder"],
                             path=os.path.basename(path),
                         )
-                scale = opts["scale"]  # the engine's, which is built from it
+                scale = _model_config(opts).scale  # the engine's
                 stem, ext = os.path.splitext(path)
                 # the FULL source name stays in transformed dsts so
                 # movie.mkv and movie.mp4 in one job cannot collide on
